@@ -17,7 +17,11 @@ Phases, one line each; any failure exits non-zero:
             rows (bench.py's scheme) to 2^28 rows
   kernels   K1-K4 against their plain versions at the main path's shapes
             (8,192 reads of 150 bp): integers equal, float32 bitwise; the
-            median ms of each over 5 runs after a warm-up, from CUDA events
+            median ms of each over 5 runs after a warm-up, from CUDA events,
+            for the wrapper (ms) and the plain version; its kernels' device
+            time alone (launch_ms, mean of 5 from a torch.profiler trace);
+            bound_ms from the batch's own bytes (tools/probes.bound); K2's
+            stash size and the warps whose write walked again
   parity    one 8,192-read batch classified through the kernels and
             through the plain versions gives identical classification lines
   tiny      the two-genome world of .claude/skills/verify/SKILL.md through
@@ -35,6 +39,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -45,6 +50,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROWS = 1 << 28  # smoke DB rows after decoy padding
+
+# kernel name -> its CUDA functions, as the profiler names them
+KERNEL_FUNCTIONS = {"extract_metamers": ["extract_kernel"],
+                    "search_scan": ["count_kernel", "write_kernel"],
+                    "chain_matches": ["chain_kernel"],
+                    "combine_paths": ["combine_kernel"]}
 
 KERNELS = [
     # name, source, the XLA block it replaces
@@ -240,7 +251,7 @@ def kernel_phase(clf, metas, rows) -> dict:
     from metabuli_tpu_torch.classify.device_compact import compact_paths
     from metabuli_tpu_torch.ops import encode
     from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
-    from metabuli_tpu_torch.tools.probes import median_ms
+    from metabuli_tpu_torch.tools.probes import bound, median_ms
 
     dev = clf.device
     codes, lens = encode_seqs_padded([r[0] for r in rows])
@@ -251,27 +262,76 @@ def kernel_phase(clf, metas, rows) -> dict:
     qids = torch.arange(n, dtype=torch.int32, device=dev)
     out = {}
 
-    def record(name, fn_k, fn_p):
+    def launch_ms(name, fn, runs=5):
+        """Device time of the kernels that ``fn`` launches (their launches
+        alone, not the wrapper's glue), from a torch.profiler trace of
+        ``runs`` calls after a warm-up: per kernel function the mean over
+        its launches in the trace (each call launches each once), and
+        their sum."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        times = {f: [] for f in KERNEL_FUNCTIONS[name]}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for f in times:
+                if re.search(rf"(^|::){f}\b", e.name):
+                    times[f].append(e.time_range.elapsed_us() / 1e3)
+        if not all(times.values()):
+            fail("kernels", f"the trace shows no launch of {times}")
+        parts = [sum(t) / len(t) for t in times.values()]
+        return sum(parts), parts
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def record(name, fn_k, fn_p, cost):
+        """``cost(outputs)`` -> least bytes of the call."""
         got, want = fn_k(), fn_p()
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
+        # K2's count of warps that walked again is the kernel's own
+        same = lambda r: (r[:-1] if isinstance(r, pipeline.Candidates)
+                          else r)
+        err = max_abs_err(same(got), same(want))
+        b_ms, b_by = bound(cost(got))
+        l_ms, parts = launch_ms(name, fn_k)
         out[name] = {"max_abs_err": err, "ms": median_ms(fn_k),
-                     "plain_ms": median_ms(fn_p)}
+                     "launch_ms": l_ms, "plain_ms": median_ms(fn_p),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         say("kernels", kernel=name, equal=err == 0,
-            ms=round(out[name]["ms"], 4),
-            plain_ms=round(out[name]["plain_ms"], 4))
+            **{k: round(out[name][k], 4)
+               for k in ("ms", "launch_ms", "plain_ms", "bound_ms")},
+            bound_by=b_by, launch_parts_ms=[round(p, 4) for p in parts])
         if err != 0:
             fail("kernels", f"{name} differs from its plain version ({err})")
         return got
 
+    # least bytes: every input read once, every output written once (K2:
+    # only the table entries its queries need)
     mm = record("extract_metamers",
                 lambda: encode.extract_metamers(codes, lens),
-                lambda: encode.extract_metamers_plain(codes, lens))
+                lambda: encode.extract_metamers_plain(codes, lens),
+                lambda mm: nbytes([codes, lens, *mm]))
     idx, W = clf.dev_index, mm.value.shape[2]
     q = (mm.value.reshape(-1), mm.valid.reshape(-1), mm.dna48.reshape(-1))
-    record("search_scan",
-           lambda: pipeline.search_scan(idx, *q, W, clf.cap),
-           lambda: pipeline.search_scan_plain(idx, *q, W, clf.cap))
+    gs, ge, hit = pipeline._search_groups(idx, q[0], q[1])
+    n_valid, n_hit = int(q[1].sum()), int(hit.sum())
+    n_window = int((torch.minimum(ge, gs + clf.cap) - gs).sum())
+    say("kernels", slots=q[0].numel(), valid_slots=n_valid,
+        hit_slots=n_hit, window_rows=n_window)
+    cand = record("search_scan",
+                  lambda: pipeline.search_scan(idx, *q, W, clf.cap),
+                  lambda: pipeline.search_scan_plain(idx, *q, W, clf.cap),
+                  lambda c: (17 * q[0].numel() + 12 * n_valid + 8 * n_hit
+                             + 8 * n_window + 12 * c.row.numel()))
+    say("kernels", stash_per_slot=pipeline.stash_per_slot(idx),
+        rows_per_hit=round(idx.rows_per_hit, 3),
+        warps=(q[0].numel() + 31) // 32, warps_walked_again=cand.n_rewalk)
     m, counts = pipeline.classify_core(idx, clf.d_species, codes, lens, offs,
                                        qids, cap=clf.cap)
     frame, ham = m.packed & 7, (m.packed >> 3) & 0xFF
@@ -281,14 +341,16 @@ def kernel_phase(clf, metas, rows) -> dict:
     kw = dict(max_shift=dtx.p.max_codon_shift)
     chain = record("chain_matches",
                    lambda: device_chain.chain_matches(*cargs, **kw),
-                   lambda: device_chain.chain_matches_plain(*cargs, **kw))
+                   lambda: device_chain.chain_matches_plain(*cargs, **kw),
+                   lambda r: nbytes([*cargs, *r]))
     paths, gstart = device_combine.sort_paths(
         compact_paths(chain, m.qid, m.species, m.pos, h16))
     rl = torch.as_tensor(np.array([x.read_len for x in metas], np.int32),
                          device=dev)
     record("combine_paths",
            lambda: [device_combine.combine_paths(paths, gstart, rl)],
-           lambda: [device_combine.combine_paths_plain(paths, gstart, rl)])
+           lambda: [device_combine.combine_paths_plain(paths, gstart, rl)],
+           lambda r: nbytes([*paths, gstart, rl, *r]))
     say("kernels", matches=counts["n_matches"], paths=paths.read.numel(),
         groups=gstart.numel() - 1)
     return out
@@ -334,6 +396,9 @@ def main() -> int:
         say("probes", kernel=name, replaces=r["replaces"],
             equal=r["max_abs_err"] == 0, ms=round(r["ms"], 4),
             plain_ms=round(r["plain_ms"], 4),
+            bound_ms=round(r["bound_ms"], 4), bound_by=r["bound_by"],
+            library_ms=(None if r["library_ms"] is None
+                        else round(r["library_ms"], 4)),
             **{k: round(r[k], 3) for k in ("ns_per_query", "gb_per_s")
                if k in r})
         if r["max_abs_err"] != 0:

@@ -160,8 +160,11 @@ class Classifier:
         self.load_s = time.perf_counter() - t0
         if params.batch_reads == 0:
             params.batch_reads = self._auto_batch_reads()
-        # cap = the DB's true max AA-group size, clamped by --max-cap
-        self.cap = int(min(max(1, self.index.max_group), params.max_cap))
+        # cap = the DB's true max AA-group size: the fixed point of the
+        # reference package's retry ladder, which starts at --max-cap and
+        # grows the cap to max_group whenever a group was cut, so its
+        # output never truncates a group and --max-cap changes no output
+        self.cap = max(1, self.index.max_group)
         self.timer = StageTimer(self.device)
         self.stats = {"matches": 0, "kmers": 0, "reads": 0,
                       "device_s": 0.0, "tax_s": 0.0}

@@ -202,8 +202,10 @@ def chain_matches_plain(qid, species, frame, pos, ham, dna, h16,
 def chain_matches(qid, species, frame, pos, ham, dna, h16,
                   min_depth_of_species, *, max_shift: int,
                   kmer_format: int = 2) -> ChainResult:
-    """Kernel K3 wrapper (one thread per block). CPU tensors take the
-    plain version."""
+    """Kernel K3 wrapper (a warp walks the blocks that start in its window
+    of rows in tiles of 32, a lane per row; the kernel finds the blocks
+    itself, so there is no host sync). CPU tensors take the plain
+    version."""
     if qid.device.type == "cpu":
         return chain_matches_plain(qid, species, frame, pos, ham, dna, h16,
                                    min_depth_of_species, max_shift=max_shift,
@@ -215,19 +217,19 @@ def chain_matches(qid, species, frame, pos, ham, dna, h16,
     build.require_cuda("chain_matches", *cols, md)
     dev = qid.device
     M = qid.numel()
-    i32 = torch.int32
-    emit = torch.zeros(M, dtype=torch.bool, device=dev)
-    score = torch.empty(M, dtype=torch.float32, device=dev)
-    start, p_ham, depth, sh16 = (torch.empty(M, dtype=i32, device=dev)
-                                 for _ in range(4))
+    if M >= 1 << 31:
+        raise ValueError(f"chain_matches: {M} rows, the kernel takes < 2^31")
+    # the kernel writes every row of every output (one allocation for the
+    # five 32-bit columns)
+    emit = torch.empty(M, dtype=torch.bool, device=dev)
+    cols32 = torch.empty((5, M), dtype=torch.int32, device=dev)
+    score = cols32[0].view(torch.float32)
+    start, p_ham, depth, sh16 = cols32[1:]
     if M == 0:
         return ChainResult(emit, score, start, p_ham, depth, sh16)
-    heads = torch.nonzero(_blocks(qid, species, frame)).squeeze(1)
-    block_start = torch.cat([heads, heads.new_full((1,), M)]).to(i32)
-    nb = heads.numel()
     rc = build.get_lib().mtb_chain_matches(
-        nb, block_start.data_ptr(), frame.data_ptr(), pos.data_ptr(),
-        ham.data_ptr(), dna.data_ptr(), h16.data_ptr(), species.data_ptr(),
+        M, qid.data_ptr(), species.data_ptr(), frame.data_ptr(),
+        pos.data_ptr(), ham.data_ptr(), dna.data_ptr(), h16.data_ptr(),
         md.data_ptr(), md.numel(), max_shift, kmer_format,
         score.data_ptr(), start.data_ptr(), p_ham.data_ptr(),
         depth.data_ptr(), sh16.data_ptr(), emit.data_ptr(),

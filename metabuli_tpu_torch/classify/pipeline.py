@@ -24,6 +24,7 @@ none of the reference package's caps, budgets or retry ladder exist here.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -96,6 +97,7 @@ class DevIndex:
     prefix_bits: int
     search_iters: int      # lower-bound steps that cover the fullest bucket
     max_group: int         # deepest group, rows
+    rows_per_hit: float    # size-biased mean group: sum |g|^2 / sum |g|
 
     @property
     def device(self) -> torch.device:
@@ -123,10 +125,13 @@ class DevIndex:
         pb = int(prefix.numel() - 1).bit_length() - 1
         max_bucket = int((prefix[1:] - prefix[:-1]).max()) if pb else 1
         iters = max(1, int(np.ceil(np.log2(max(2, max_bucket + 1)))))
-        max_group = int((gend - gstart).max()) if gend.numel() else 1
+        size = (gend - gstart).to(torch.int64)
+        max_group = int(size.max()) if size.numel() else 1
+        rows = int(size.sum())
         return cls(grest, gstart, gend, taxdna, d48, prefix,
                    n=int(taxdna.numel()), prefix_bits=pb,
-                   search_iters=iters, max_group=max(max_group, 1))
+                   search_iters=iters, max_group=max(max_group, 1),
+                   rows_per_hit=int((size * size).sum()) / max(rows, 1))
 
     def tables(self):
         return (self.grest, self.gstart, self.gend, self.taxdna, self.d48,
@@ -187,6 +192,7 @@ class Candidates(NamedTuple):
     slot: torch.Tensor   # [M] int32 query slot (read, frame, window)
     pay: torch.Tensor    # [M] int32 h16 << 6 | hamming << 3 | frame
     n_over_cap: int      # query slots whose group was cut at cap
+    n_rewalk: int = 0    # K2 warps whose write launch walked again
 
 
 def _hamming48(q: torch.Tensor, t: torch.Tensor):
@@ -254,49 +260,74 @@ def search_scan_plain(index: DevIndex, q_value: torch.Tensor,
                       pay[keep].to(torch.int32), n_over)
 
 
+# most entries per query slot of K2's stash (8 B each)
+STASH_MAX_PER_SLOT = 8
+
+
+def stash_per_slot(index: DevIndex) -> int:
+    """Entries per query slot of the pool in which K2's count launch hands
+    its kept pairs to the write launch: twice the window that a query
+    drawn like a table row meets (the index's size-biased mean group),
+    at most STASH_MAX_PER_SLOT. A warp reserves its windows' rows at once;
+    one that finds the pool full walks its windows again in the write
+    launch (``Candidates.n_rewalk``)."""
+    return min(STASH_MAX_PER_SLOT, max(1, math.ceil(2 * index.rows_per_hit)))
+
+
 def search_scan(index: DevIndex, q_value: torch.Tensor,
                 q_valid: torch.Tensor, q_dna48: torch.Tensor,
                 W: int, cap: int) -> Candidates:
-    """Kernel K2 wrapper: a count launch, an exclusive scan, a write
-    launch in slot order. CPU tensors take the plain version."""
+    """Kernel K2 wrapper: a count launch, a scan of the per-warp counts,
+    one read-back of the output size, a write launch in slot order. CPU
+    tensors take the plain version."""
     if q_value.device.type == "cpu":
         return search_scan_plain(index, q_value, q_valid, q_dna48, W, cap)
     if q_value.dtype != torch.int64 or q_dna48.dtype != torch.int64 \
             or q_valid.dtype != torch.bool:
         raise TypeError("search_scan: value/dna48 int64, valid bool")
-    if not 0 < cap < (1 << 24):  # the count pass packs the window length
-        raise ValueError(f"search_scan: cap {cap} outside (0, 2^24)")
+    if not 0 < cap < (1 << 31):
+        raise ValueError(f"search_scan: cap {cap} outside (0, 2^31)")
     dev = q_value.device
     Q = q_value.numel()
     tabs = (index.grest, index.gstart, index.gend, index.prefix, index.d48)
     build.require_cuda("search_scan", q_value, q_valid, q_dna48, *tabs)
-    count = torch.empty(Q, dtype=torch.int32, device=dev)
-    start = torch.empty(Q, dtype=torch.int32, device=dev)
-    over = torch.empty(Q, dtype=torch.int32, device=dev)
-    min_h = torch.empty(Q, dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    if Q == 0:
+        e = torch.empty(0, **i32)
+        return Candidates(e, e, e, 0)
+    n_warps = (Q + 31) // 32
+    start, wlen, cut = (torch.empty(Q, **i32) for _ in range(3))
+    # kept pairs per warp, the over-cap slots, the warps that walk again;
+    # then the stash's fill
+    counters = torch.zeros(n_warps + 3, **i64)
+    acc, top = counters[:-1], counters[-1:]
+    n_stash = stash_per_slot(index) * Q
+    stash = torch.empty((n_stash, 2), **i32)
+    wstash = torch.empty(n_warps, **i64)
     lib = build.get_lib()
     st = build.stream(dev)
-    if Q:
-        build.check(lib.mtb_search_count(
-            q_value.data_ptr(), q_valid.data_ptr(), q_dna48.data_ptr(), Q, W,
-            index.grest.data_ptr(), index.gstart.data_ptr(),
-            index.gend.data_ptr(), index.prefix.data_ptr(),
-            index.d48.data_ptr(), index.prefix_bits, cap, count.data_ptr(),
-            start.data_ptr(), over.data_ptr(), min_h.data_ptr(), st),
-            "search_scan")
-        build.launches["search_scan"] += 1
-    offset = torch.cumsum(count, 0, dtype=torch.int64) - count
-    total = int(offset[-1] + count[-1]) if Q else 0  # the one read-back
-    row = torch.empty(total, dtype=torch.int32, device=dev)
-    slot = torch.empty(total, dtype=torch.int32, device=dev)
-    pay = torch.empty(total, dtype=torch.int32, device=dev)
+    rc = lib.mtb_search_count(
+        q_value.data_ptr(), q_valid.data_ptr(), q_dna48.data_ptr(), Q, W,
+        index.grest.data_ptr(), index.gstart.data_ptr(),
+        index.gend.data_ptr(), index.prefix.data_ptr(),
+        index.d48.data_ptr(), index.prefix_bits, cap, start.data_ptr(),
+        wlen.data_ptr(), cut.data_ptr(), acc.data_ptr(),
+        stash.data_ptr(), n_stash, top.data_ptr(), wstash.data_ptr(), st)
+    build.check(rc, "search_scan")
+    build.launches["search_scan"] += 1
+    scan = torch.cumsum(acc, 0)
+    total, with_over, with_rewalk = scan[-3:].tolist()  # the one read-back
+    row, slot, pay = (torch.empty(total, **i32) for _ in range(3))
     if total:
-        build.check(lib.mtb_search_write(
-            q_dna48.data_ptr(), Q, W, index.d48.data_ptr(), count.data_ptr(),
-            start.data_ptr(), min_h.data_ptr(), offset.data_ptr(),
-            row.data_ptr(), slot.data_ptr(), pay.data_ptr(), st),
-            "search_scan")
-    return Candidates(row, slot, pay, int(over.sum()) if Q else 0)
+        rc = lib.mtb_search_write(
+            q_dna48.data_ptr(), Q, W, index.d48.data_ptr(),
+            start.data_ptr(), wlen.data_ptr(), cut.data_ptr(),
+            scan.data_ptr(), stash.data_ptr(), wstash.data_ptr(),
+            row.data_ptr(), slot.data_ptr(), pay.data_ptr(), st)
+        build.check(rc, "search_scan")
+    return Candidates(row, slot, pay, with_over - total,
+                      with_rewalk - with_over)
 
 
 # ------------------------------------------------------------ match core

@@ -48,13 +48,15 @@ _SIGNATURES = {
     "mtb_extract_metamers": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
                              _P, _P, _P, _P, _P],
     # value, valid, dna48, Q, W, grest, gstart, gend, prefix, d48,
-    # prefix_bits, cap, count, start, over, min_h, stream
+    # prefix_bits, cap, start, wlen, cut, acc, stash, stash_cap,
+    # stash_top, wstash, stream
     "mtb_search_count": [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I,
-                         _P, _P, _P, _P, _P],
-    # dna48, Q, W, d48, count, start, min_h, offset,
+                         _P, _P, _P, _P, _P, _L, _P, _P, _P],
+    # dna48, Q, W, d48, start, wlen, cut, scan, stash, wstash,
     # out_row, out_slot, out_pay, stream
-    "mtb_search_write": [_P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # n_blocks, block_start, frame, pos, ham, dna, h16, species,
+    "mtb_search_write": [_P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P],
+    # M, qid, species, frame, pos, ham, dna, h16,
     # min_depth, n_species, max_shift, kmer_format,
     # p_score, p_start, p_ham, p_depth, p_sh16, emit, stream
     "mtb_chain_matches": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -1,32 +1,57 @@
-// K2: fused group search + candidate scan, one thread per query slot.
+// K2: fused group search + candidate scan; a warp owns 32 query slots.
 //
 // Replaces the XLA blocks of metabuli_tpu/classify/pipeline.py::
 // _classify_core: search_groups (:607-656), tier (:673-696) with
 // hamming_dna48_split (:109-140), the direct-probe flow (:712-970) and the
 // classic flow (:971-1108). There every query gathers a fixed-width
 // candidate window (two tiers, a deep tier, fixed budgets, a retry ladder
-// on overflow); here each thread walks its own group, however deep, and
-// the output is sized exactly by a count pass and an exclusive scan.
+// on overflow); here every window is scanned whole, however deep, and the
+// output is sized exactly by a count launch and a scan over warps.
 //
-// Bound on the card: the random loads. Each valid slot costs ~log2(bucket
-// load) dependent 4-byte loads in grest, one load each of gstart/gend, and
-// one 8-byte d48 load per candidate row (read twice: count pass, write
-// pass). Groups are contiguous, so a deep group's rows coalesce within a
-// thread's sequential walk but not across the warp. Threads whose groups
-// differ in depth diverge; the pay-off of a warp-per-query layout is later
-// work.
-//
-// Launches: mtb_search_count writes per slot (count, window start,
-// over-cap flag, min Hamming); the caller scans the counts; mtb_search_write
-// re-walks the window and writes the kept rows at the slot's offset, so the
+// Design. Each lane searches its own slot's group (a lower bound in the
+// bucket's grest run). The warp then treats its 32 windows as one flat list
+// of (slot, row) pairs, in slot order, and strides over it 32 pairs at a
+// time: a lane finds the slot that owns its pair by a 5-step search over the
+// warp's inclusive window prefix (shuffles), so neighbouring lanes load
+// neighbouring d48 rows (coalesced 8-byte loads) and a warp costs
+// ceil(sum of its windows / 32) steps, not 32 x its deepest window. Per slot
+// minima go through a shared-memory atomicMin, kept counts through
+// __ballot_sync + __popc. The count launch also stashes each warp's kept
+// pairs (row, and lane | payload), in flat order, in a shared pool: the
+// warp reserves as many entries as its windows have rows with one atomicAdd
+// and writes the kept ones compactly. The write launch copies a stashed
+// warp's pairs to its output base (coalesced, no table access); a warp
+// that found the pool full walks its windows again, with the same walk
+// (walk_kept) as the count launch, and is counted. Either way each kept
+// pair lands at the warp's output base + the kept pairs before it, so the
 // output is in (slot, row) order: the stable compaction the reference
 // package gets from its partition sort (pipeline.py:1110-1117).
+//
+// Bound on the card: bytes. Least bytes for one call, each needed byte once
+// (chip_smoke.py computes them from the batch's counts): 17 B per query slot
+// (value, valid, dna48), 12 B per valid slot (two prefix entries and the
+// grest entry found), 8 B per hit slot (gstart, gend), 8 B per window row
+// (d48) and 12 B per kept row out (row, slot, payload). What holds the count
+// launch far above that bound is the number of scattered accesses, not
+// their bytes: a valid slot touches about five 32-byte sectors spread over
+// the whole index (prefix, grest, gstart, gend, d48), so fewer sectors per
+// slot (one record per group) is the next step for this kernel.
+//
+// Launches: mtb_search_count writes per slot (window start, length, Hamming
+// cutoff), per warp (kept pairs into acc[w], the over-cap slots added to
+// acc[n_warps], the warps that found the pool full to acc[n_warps + 1],
+// the stash entry or -1) and the stash; the caller scans acc (torch.cumsum)
+// and reads back its last three entries, the one host read-back (output
+// total, then n_over_cap and the walked-again warps after it);
+// mtb_search_write writes the kept pairs at the scanned offsets.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
 constexpr uint64_t kPermMult = 0x9E3779B97F4A7C15ull;
 constexpr uint64_t kMask40 = (1ull << 40) - 1;
 
@@ -46,85 +71,223 @@ __device__ __forceinline__ int hamming48(uint64_t q, uint64_t t, bool fwd,
   return __popcll(m);
 }
 
-__global__ void count_kernel(const int64_t* __restrict__ value,
-                             const bool* __restrict__ valid,
-                             const int64_t* __restrict__ qd48, int64_t Q,
-                             int W, const int32_t* __restrict__ grest,
-                             const int32_t* __restrict__ gstart,
-                             const int32_t* __restrict__ gend,
-                             const int32_t* __restrict__ prefix,
-                             const int64_t* __restrict__ d48,
-                             int prefix_bits, int cap,
-                             int32_t* __restrict__ count,
-                             int32_t* __restrict__ start,
-                             int32_t* __restrict__ over,
-                             int32_t* __restrict__ min_h) {
-  int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= Q) return;
-  count[s] = 0;
-  start[s] = 0;
-  over[s] = 0;
-  min_h[s] = 255;
-  if (!valid[s]) return;
-  int rb = 40 - prefix_bits;
-  uint64_t pi = (((uint64_t)value[s] >> 24) * kPermMult) & kMask40;
-  int32_t rest = (int32_t)(pi & ((1ull << rb) - 1));
-  int64_t bucket = (int64_t)(pi >> rb);
-  int32_t lo = prefix[bucket], hi = prefix[bucket + 1];
-  int32_t end = hi;
-  while (lo < hi) {  // lower bound of rest among the bucket's groups
-    int32_t mid = (lo + hi) >> 1;
-    if (grest[mid] < rest) lo = mid + 1; else hi = mid;
+__device__ __forceinline__ long long warp_inclusive_sum(long long x,
+                                                        int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    long long y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
   }
-  if (lo >= end || grest[lo] != rest) return;
-  int32_t gs = gstart[lo], ge = gend[lo];
-  int32_t we = ge - gs > cap ? gs + cap : ge;
-  over[s] = ge - gs > cap;
-  bool fwd = (s / W) % 6 < 3;
-  uint64_t q = (uint64_t)qd48[s];
-  int h16, best = 255;
-  for (int32_t r = gs; r < we; ++r) {
-    int h = hamming48(q, (uint64_t)d48[r], fwd, &h16);
-    best = h < best ? h : best;
-  }
-  int cutoff = 2 * best < 7 ? 2 * best : 7;
-  int n = 0;
-  for (int32_t r = gs; r < we; ++r)
-    n += hamming48(q, (uint64_t)d48[r], fwd, &h16) <= cutoff;
-  count[s] = n;
-  start[s] = gs;
-  min_h[s] = (we - gs) | (best << 24);  // window length and min, packed
+  return x;
 }
 
-__global__ void write_kernel(const int64_t* __restrict__ qd48, int64_t Q,
-                             int W, const int64_t* __restrict__ d48,
-                             const int32_t* __restrict__ count,
-                             const int32_t* __restrict__ start,
-                             const int32_t* __restrict__ min_h,
-                             const int64_t* __restrict__ offset,
-                             int32_t* __restrict__ out_row,
-                             int32_t* __restrict__ out_slot,
-                             int32_t* __restrict__ out_pay) {
-  int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= Q || count[s] == 0) return;
-  int frame = (int)((s / W) % 6);
-  bool fwd = frame < 3;
-  int32_t gs = start[s];
-  int32_t we = gs + (min_h[s] & 0xFFFFFF);
-  int best = min_h[s] >> 24;
-  int cutoff = 2 * best < 7 ? 2 * best : 7;
-  uint64_t q = (uint64_t)qd48[s];
-  int64_t o = offset[s];
-  for (int32_t r = gs; r < we; ++r) {
-    int h16;
-    int h = hamming48(q, (uint64_t)d48[r], fwd, &h16);
-    if (h <= cutoff) {
-      out_row[o] = r;
-      out_slot[o] = (int32_t)s;
-      out_pay[o] = (h16 << 6) | (h << 3) | frame;
-      ++o;
+// The warp's 32 windows as one flat (slot, row) list. Pair f belongs to the
+// first lane whose inclusive window prefix exceeds f.
+struct FlatWindows {
+  long long incl;   // this lane's inclusive prefix of window lengths
+  long long total;  // pairs in the warp
+
+  __device__ __forceinline__ int owner(long long f) const {
+    int j = 0;
+    for (int step = 16; step; step >>= 1) {
+      long long v = __shfl_sync(kFull, incl, j + step - 1);
+      if (v <= f) j += step;
+    }
+    return j;
+  }
+};
+
+struct Pair {
+  bool live;      // f < total
+  int j;          // owning lane
+  int32_t row;    // table row
+  int frame;
+  int h, h16;     // Hamming sum and per-codon counts
+};
+
+// pair f0 + lane of the flat list: its owner, table row and Hamming
+__device__ __forceinline__ Pair pair_at(const FlatWindows& fw, long long f0,
+                                        int lane, int len, int32_t gs,
+                                        uint64_t q, int frame,
+                                        const int64_t* __restrict__ d48) {
+  Pair p;
+  long long f = f0 + lane;
+  p.live = f < fw.total;
+  p.j = fw.owner(f);
+  long long first = __shfl_sync(kFull, fw.incl - len, p.j);
+  int32_t gj = __shfl_sync(kFull, gs, p.j);
+  unsigned long long qj = __shfl_sync(kFull, (unsigned long long)q, p.j);
+  p.frame = __shfl_sync(kFull, frame, p.j);
+  p.row = gj + (int32_t)(f - first);
+  p.h = 0;
+  p.h16 = 0;
+  if (p.live)
+    p.h = hamming48(qj, (uint64_t)d48[p.row], p.frame < 3, &p.h16);
+  return p;
+}
+
+// The warp's kept pairs (Hamming within their slot's cutoff c), in flat
+// order: calls put(p, at) for each, at = its rank among the warp's kept
+// pairs; returns how many were kept. The count launch stashes them with it,
+// the write launch's second walk writes them out.
+template <class Put>
+__device__ __forceinline__ long long walk_kept(
+    const FlatWindows& fw, int lane, int len, int32_t gs, uint64_t q,
+    int frame, int c, const int64_t* __restrict__ d48, Put put) {
+  long long kept = 0;
+  unsigned lt = (1u << lane) - 1;
+  for (long long f0 = 0; f0 < fw.total; f0 += 32) {
+    Pair p = pair_at(fw, f0, lane, len, gs, q, frame, d48);
+    int cj = __shfl_sync(kFull, c, p.j);
+    bool keep = p.live && p.h <= cj;
+    unsigned b = __ballot_sync(kFull, keep);
+    if (keep) put(p, kept + __popc(b & lt));
+    kept += __popc(b);
+  }
+  return kept;
+}
+
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
+             const int64_t* __restrict__ qd48, int64_t Q, int W,
+             const int32_t* __restrict__ grest,
+             const int32_t* __restrict__ gstart,
+             const int32_t* __restrict__ gend,
+             const int32_t* __restrict__ prefix,
+             const int64_t* __restrict__ d48, int prefix_bits, int cap,
+             int32_t* __restrict__ start, int32_t* __restrict__ wlen,
+             int32_t* __restrict__ cut, int64_t* __restrict__ acc,
+             int2* __restrict__ stash, int64_t stash_cap,
+             unsigned long long* __restrict__ stash_top,
+             int64_t* __restrict__ wstash) {
+  __shared__ int s_min[kThreads];
+  int lane = threadIdx.x & 31;
+  int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  int64_t s0 = s - lane;
+  if (s0 >= Q) return;  // the whole warp lies past the last slot
+
+  // 1. one lane per slot: lower bound of the key among its bucket's groups
+  int32_t gs = 0;
+  int len = 0;
+  bool over = false;
+  uint64_t q = 0;
+  int frame = 0;
+  if (s < Q) {
+    q = (uint64_t)qd48[s];
+    frame = (int)((s / W) % 6);
+    if (valid[s]) {
+      int rb = 40 - prefix_bits;
+      uint64_t pi = (((uint64_t)value[s] >> 24) * kPermMult) & kMask40;
+      int32_t rest = (int32_t)(pi & ((1ull << rb) - 1));
+      int64_t bucket = (int64_t)(pi >> rb);
+      int32_t lo = prefix[bucket], hi = prefix[bucket + 1];
+      int32_t end = hi;
+      while (lo < hi) {
+        int32_t mid = (lo + hi) >> 1;
+        if (grest[mid] < rest) lo = mid + 1; else hi = mid;
+      }
+      if (lo < end && grest[lo] == rest) {
+        gs = gstart[lo];
+        int32_t n = gend[lo] - gs;
+        over = n > cap;
+        len = over ? cap : n;
+      }
     }
   }
+
+  // 2. the warp's windows as one flat list: per slot minimum Hamming
+  FlatWindows fw;
+  fw.incl = warp_inclusive_sum(len, lane);
+  fw.total = __shfl_sync(kFull, fw.incl, 31);
+  int* wmin = s_min + (threadIdx.x - lane);
+  wmin[lane] = 255;
+  __syncwarp();
+  for (long long f0 = 0; f0 < fw.total; f0 += 32) {
+    Pair p = pair_at(fw, f0, lane, len, gs, q, frame, d48);
+    if (p.live) atomicMin(&wmin[p.j], p.h);
+  }
+  __syncwarp();
+  int best = wmin[lane];
+  int c = 2 * best < 7 ? 2 * best : 7;
+
+  // 3. kept pairs: Hamming within the slot's cutoff, stashed as (row,
+  // lane << 22 | payload) if the pool has room for all the warp's rows
+  long long base = -1;
+  if (lane == 0 && fw.total > 0) {
+    unsigned long long at =
+        atomicAdd(stash_top, (unsigned long long)fw.total);
+    if (at + fw.total <= (unsigned long long)stash_cap) base = (long long)at;
+  }
+  base = __shfl_sync(kFull, base, 0);
+  long long kept = walk_kept(
+      fw, lane, len, gs, q, frame, c, d48, [&](const Pair& p, long long at) {
+        if (base >= 0)
+          stash[base + at] = make_int2(
+              p.row, (p.j << 22) | (p.h16 << 6) | (p.h << 3) | p.frame);
+      });
+  if (s < Q && base < 0) {  // what the write launch's second walk reads
+    start[s] = gs;
+    wlen[s] = len;
+    cut[s] = c;
+  }
+  int n_over = __popc(__ballot_sync(kFull, over));
+  if (lane == 0) {
+    int64_t w = s0 >> 5, n_warps = (Q + 31) >> 5;
+    acc[w] = kept;
+    wstash[w] = base;
+    if (n_over) atomicAdd((unsigned long long*)(acc + n_warps),
+                          (unsigned long long)n_over);
+    if (base < 0 && fw.total > 0)  // the write launch walks it again
+      atomicAdd((unsigned long long*)(acc + n_warps + 1), 1ull);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
+             const int64_t* __restrict__ d48,
+             const int32_t* __restrict__ start,
+             const int32_t* __restrict__ wlen,
+             const int32_t* __restrict__ cut,
+             const int64_t* __restrict__ scan,
+             const int2* __restrict__ stash,
+             const int64_t* __restrict__ wstash,
+             int32_t* __restrict__ out_row, int32_t* __restrict__ out_slot,
+             int32_t* __restrict__ out_pay) {
+  int lane = threadIdx.x & 31;
+  int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  int64_t s0 = s - lane;
+  if (s0 >= Q) return;
+  int64_t w = s0 >> 5;
+  long long o = w ? scan[w - 1] : 0;  // kept pairs of earlier warps
+  long long n_keep = scan[w] - o;
+  if (wstash[w] >= 0) {  // the count launch stashed them
+    const int2* mine = stash + wstash[w];
+    for (long long i = lane; i < n_keep; i += 32) {
+      int2 v = mine[i];
+      out_row[o + i] = v.x;
+      out_slot[o + i] = (int32_t)(s0 + (v.y >> 22));
+      out_pay[o + i] = v.y & 0x3FFFFF;
+    }
+    return;
+  }
+  int32_t gs = 0;
+  int len = 0, c = 0, frame = 0;
+  uint64_t q = 0;
+  if (s < Q) {
+    gs = start[s];
+    len = wlen[s];
+    c = cut[s];
+    q = (uint64_t)qd48[s];
+    frame = (int)((s / W) % 6);
+  }
+  FlatWindows fw;
+  fw.incl = warp_inclusive_sum(len, lane);
+  fw.total = __shfl_sync(kFull, fw.incl, 31);
+  walk_kept(fw, lane, len, gs, q, frame, c, d48,
+            [&](const Pair& p, long long at) {
+              out_row[o + at] = p.row;
+              out_slot[o + at] = (int32_t)(s0 + p.j);
+              out_pay[o + at] = (p.h16 << 6) | (p.h << 3) | p.frame;
+            });
 }
 
 }  // namespace
@@ -134,26 +297,28 @@ extern "C" int mtb_search_count(const int64_t* value, const bool* valid,
                                 const int32_t* grest, const int32_t* gstart,
                                 const int32_t* gend, const int32_t* prefix,
                                 const int64_t* d48, int prefix_bits, int cap,
-                                int32_t* count, int32_t* start, int32_t* over,
-                                int32_t* min_h, cudaStream_t stream) {
-  int threads = 256;
-  int64_t blocks = (Q + threads - 1) / threads;
-  count_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+                                int32_t* start, int32_t* wlen, int32_t* cut,
+                                int64_t* acc, int2* stash, int64_t stash_cap,
+                                unsigned long long* stash_top, int64_t* wstash,
+                                cudaStream_t stream) {
+  int64_t blocks = (Q + kThreads - 1) / kThreads;
+  count_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
       value, valid, qd48, Q, W, grest, gstart, gend, prefix, d48,
-      prefix_bits, cap, count, start, over, min_h);
+      prefix_bits, cap, start, wlen, cut, acc, stash, stash_cap, stash_top,
+      wstash);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mtb_search_write(const int64_t* qd48, int64_t Q, int W,
-                                const int64_t* d48, const int32_t* count,
-                                const int32_t* start, const int32_t* min_h,
-                                const int64_t* offset, int32_t* out_row,
+                                const int64_t* d48, const int32_t* start,
+                                const int32_t* wlen, const int32_t* cut,
+                                const int64_t* scan, const int2* stash,
+                                const int64_t* wstash, int32_t* out_row,
                                 int32_t* out_slot, int32_t* out_pay,
                                 cudaStream_t stream) {
-  int threads = 256;
-  int64_t blocks = (Q + threads - 1) / threads;
-  write_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      qd48, Q, W, d48, count, start, min_h, offset, out_row, out_slot,
-      out_pay);
+  int64_t blocks = (Q + kThreads - 1) / kThreads;
+  write_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      qd48, Q, W, d48, start, wlen, cut, scan, stash, wstash, out_row,
+      out_slot, out_pay);
   return (int)cudaGetLastError();
 }

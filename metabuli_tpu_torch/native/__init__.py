@@ -1,9 +1,11 @@
 """Native (C++) host library, built with g++ at first use.
 
-The sources are the reference package's own (``metabuli_tpu/native/*.cpp``),
-compiled by path with the same flags into this package's git-ignored build
-directory; nothing is written next to the sources. A failed build raises:
-the port has no pure-Python fallback for the taxonomer finish.
+The sources live here, byte-identical copies of the reference package's
+``metabuli_tpu/native/*.cpp`` that the port calls (the taxonomer finish,
+tantan masking, FASTX parsing, key sorts), built with the reference
+package's flags into this package's git-ignored build directory; nothing
+is written next to the sources. A failed build raises: the port has no
+pure-Python fallback for the taxonomer finish.
 """
 
 from __future__ import annotations
@@ -18,13 +20,10 @@ _LOCK = threading.Lock()
 _LIB = None
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_DIR = os.path.join(os.path.dirname(_PKG), "metabuli_tpu", "native")
+SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
-_SRCS = [
-    os.path.join(SRC_DIR, name)
-    for name in ("taxonomer.cpp", "masker.cpp", "genepred.cpp",
-                 "prodigal.cpp", "fastx.cpp", "sortkeys.cpp")
-]
+SRCS = [os.path.join(SRC_DIR, name) for name in
+        ("taxonomer.cpp", "masker.cpp", "fastx.cpp", "sortkeys.cpp")]
 _SO = os.path.join(BUILD_DIR, "libmetabuli_native.so")
 
 
@@ -33,15 +32,15 @@ def _build() -> str:
     # one builder at a time across processes (pytest-xdist workers)
     with open(_SO + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        newest = max(os.path.getmtime(src) for src in _SRCS)
+        newest = max(os.path.getmtime(src) for src in SRCS)
         if os.path.exists(_SO) and os.path.getmtime(_SO) >= newest:
             return _SO
         tmp = f"{_SO}.{os.getpid()}.tmp"
-        # -ffp-contract=off: the Prodigal port's double arithmetic must not
-        # be FMA-contracted (bit-exactness against the compiled reference)
+        # the reference package's flags; -ffp-contract=off keeps the
+        # taxonomer's float arithmetic uncontracted, as it is built there
         cmd = [
             "g++", "-O3", "-march=native", "-ffp-contract=off", "-fopenmp",
-            "-shared", "-fPIC", "-std=c++17", *_SRCS, "-o", tmp, "-lz",
+            "-shared", "-fPIC", "-std=c++17", *SRCS, "-o", tmp, "-lz",
         ]
         res = subprocess.run(cmd, capture_output=True, timeout=600)
         if res.returncode != 0:

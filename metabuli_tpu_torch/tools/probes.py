@@ -182,6 +182,19 @@ def median_ms(fn, runs: int = 5) -> float:
     return float(sorted(times)[len(times) // 2])
 
 
+# the H100 SXM's published HBM3 rate at 700 W, bytes/s
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(n_bytes: float):
+    """(ms, "bytes"): the least time the card could take to move
+    ``n_bytes`` (each input byte read once, each output byte written once).
+    The operations term is not counted: these kernels do integer work, for
+    which no per-kernel operation count has been taken from their
+    instructions, so the bound is the bytes' time alone."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def run(device, table_bits: int = 23, n_queries: int = 2_097_152,
         stream_rows: int = 1 << 28) -> dict:
     """Each probe against its plain version at the reference scripts'
@@ -197,26 +210,37 @@ def run(device, table_bits: int = 23, n_queries: int = 2_097_152,
                       dtype=torch.int32, device=device)
     big = torch.randint(-(1 << 63), (1 << 63) - 1, (stream_rows,),
                         generator=g, dtype=torch.int64, device=device)
+    words = big.view(torch.int32)
+    # name -> (kernel, plain version, the one PyTorch call that computes
+    # the same function or None, least bytes: each input read once, each
+    # output written once)
     cases = {
         "gather_tile_sum": (lambda: gather_tile_sum(table, slots),
-                            lambda: gather_tile_sum_plain(table, slots)),
+                            lambda: gather_tile_sum_plain(table, slots),
+                            None, table.nbytes + slots.nbytes),
         "merge_join_sum": (lambda: merge_join_sum(table, slots),
-                           lambda: merge_join_sum_plain(table, slots)),
+                           lambda: merge_join_sum_plain(table, slots),
+                           None, table.nbytes + slots.nbytes),
         "smoke_double": (lambda: smoke_double(x),
-                         lambda: smoke_double_plain(x)),
+                         lambda: smoke_double_plain(x),
+                         lambda: torch.mul(x, 2), 2 * x.nbytes),
         "stream_sum": (lambda: stream_sum(big),
-                       lambda: stream_sum_plain(big)),
+                       lambda: stream_sum_plain(big),
+                       lambda: words.sum(dtype=torch.int32), big.nbytes),
     }
     out = {}
-    for name, (fk, fp) in cases.items():
+    for name, (fk, fp, fl, n_bytes) in cases.items():
         got, want = fk(), fp()
         torch.cuda.synchronize()
         err = (float("inf") if got.shape != want.shape else
                float((got.long() - want.long()).abs().max()))
         src, rep = PROBES[name]
+        b_ms, b_by = bound(n_bytes)
         out[name] = {"route": "cuda", "source": src, "replaces": rep,
                      "max_abs_err": err, "ms": median_ms(fk),
-                     "plain_ms": median_ms(fp)}
+                     "plain_ms": median_ms(fp), "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "library_ms": median_ms(fl) if fl else None}
     total = int(gather_tile_sum(table, slots).sum(dtype=torch.int64))
     if total != int(merge_join_sum(table, slots).sum()):
         out["merge_join_sum"]["max_abs_err"] = float("inf")

@@ -70,6 +70,59 @@ def test_port_paired_end_equals_jax(tmp_path, syncmer):
             assert got.count("\n1\t") >= 15  # most pairs classified
 
 
+def test_port_max_cap_below_deepest_group_equals_jax(tmp_path):
+    """--max-cap 3 on a DB whose AA groups are 40 deep: the JAX retry
+    ladder grows its cap to the DB's deepest group, the port starts there,
+    and both write the same classifications and report."""
+    import numpy as np
+
+    from metabuli_tpu.classify.classifier import Classifier
+    from metabuli_tpu.db.formats import DbParameters
+    from metabuli_tpu.db.index import MetamerIndex
+    from metabuli_tpu.db.taxonomy import Taxonomy
+    from metabuli_tpu.params import ClassifyParams
+    from metabuli_tpu_torch.classify.classifier import Classifier as Port
+    from metabuli_tpu_torch.params import ClassifyParams as PortParams
+    from test_torch_match import skew_data
+
+    values, taxids, _, reads = skew_data(40)
+    species = np.unique(taxids)
+    tdir = tmp_path / "taxonomy"
+    tdir.mkdir()
+    (tdir / "nodes.dmp").write_text(
+        "1\t|\t1\t|\tno rank\t|\n2\t|\t1\t|\tgenus\t|\n"
+        + "".join(f"{t}\t|\t2\t|\tspecies\t|\n" for t in species))
+    (tdir / "names.dmp").write_text("".join(
+        f"{t}\t|\tT{t}\t|\t\t|\tscientific name\t|\n"
+        for t in (1, 2, *species)))
+    (tdir / "merged.dmp").write_text("")
+    tax = Taxonomy.from_dmp(*(str(tdir / f) for f in
+                              ("names.dmp", "nodes.dmp", "merged.dmp")))
+    db = str(tmp_path / "db")
+    MetamerIndex(values=values, taxids=taxids.astype(np.uint32),
+                 taxonomy=tax, params=DbParameters(db_name="skew"),
+                 max_group=40).save(db)
+    q = tmp_path / "reads.fna"
+    q.write_text("".join(f">r{i}\n{r.decode()}\n" for i, r in enumerate(reads)))
+
+    jax_clf = Classifier(db, ClassifyParams(seq_mode=1, batch_reads=16,
+                                            max_cap=3))
+    assert jax_clf.cap == 3 < jax_clf.index.max_group == 40
+    jax_clf.classify_file(str(q), None, str(tmp_path / "jax"), "f1")
+    assert jax_clf.cap == 40  # the ladder ran to the deepest group
+    port_clf = Port(db, PortParams(seq_mode=1, batch_reads=16, max_cap=3),
+                    device="cpu")
+    assert port_clf.cap == port_clf.index.max_group == 40
+    assert main(["classify", str(q), db, str(tmp_path / "port"), "f1",
+                 "--seq-mode", "1", "--batch-reads", "16", "--max-cap", "3",
+                 "--device", "cpu"]) == 0
+    for kind in ("classifications", "report"):
+        want = (tmp_path / "jax" / f"f1_{kind}.tsv").read_bytes()
+        got = (tmp_path / "port" / f"f1_{kind}.tsv").read_bytes()
+        assert got == want, kind
+    assert want.count(b"\n") > 2
+
+
 @pytest.fixture(scope="module")
 def golden_s0(tmp_path_factory):
     return _golden_db(tmp_path_factory.mktemp("gold"), 0)

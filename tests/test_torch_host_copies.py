@@ -1,4 +1,4 @@
-"""The port's jax-free host modules are byte-identical copies of the JAX
+"""The port's jax-free host modules and native sources are byte-identical copies of the JAX
 package's, and the port never imports JAX or the JAX package (the card's
 machine has no JAX, and ``metabuli_tpu/__init__.py`` imports it)."""
 
@@ -18,6 +18,8 @@ COPIES = [
     "classify/em.py",
     "ops/genetic_code.py", "ops/mask.py",
     "native/sort.py",
+    "native/taxonomer.cpp", "native/masker.cpp", "native/fastx.cpp",
+    "native/sortkeys.cpp",
     "tools/validate.py", "tools/validate_input.py",
 ]
 
@@ -26,6 +28,16 @@ COPIES = [
 def test_host_module_is_byte_identical_copy(rel):
     port = (ROOT / "metabuli_tpu_torch" / rel).read_bytes()
     assert port == (ROOT / "metabuli_tpu" / rel).read_bytes(), rel
+
+
+def test_native_loader_compiles_only_the_ports_own_sources():
+    from metabuli_tpu_torch import native
+
+    port = ROOT / "metabuli_tpu_torch"
+    assert native.SRCS
+    for src in map(pathlib.Path, native.SRCS):
+        assert src.resolve().is_relative_to(port), src
+        assert src.is_file(), src
 
 
 def test_port_cli_imports_neither_jax_nor_reference_package():

@@ -32,12 +32,12 @@ def _port(values, taxids, t2s, reads, max_len, cap):
     return m, counts
 
 
-def _jax(index, t2s, reads, max_len, **kw):
+def _jax(index, t2s, reads, max_len, max_matches=1 << 17, **kw):
     codes, lens = encode_seqs_padded(reads, max_len)
     n = len(reads)
     bm = classify_batch_indexed(
         index, t2s, codes, lens, np.zeros(n, np.int32),
-        np.arange(n, dtype=np.int32), max_matches=1 << 17, **kw)
+        np.arange(n, dtype=np.int32), max_matches=max_matches, **kw)
     return matches_to_host(bm, t2s)
 
 
@@ -70,14 +70,14 @@ def direct_world():
     return values, taxids, np.arange(64, dtype=np.int32), source[::7][:300]
 
 
-@pytest.fixture(scope="module")
-def skew_world():
-    """tests/test_two_tier_cap.py's world: a block shared verbatim by 40
-    genomes makes AA groups 40 deep."""
+def skew_data(n_genomes: int = 40):
+    """tests/test_two_tier_cap.py's world: a block shared verbatim by
+    ``n_genomes`` genomes (species 3, 4, ...) makes AA groups that deep.
+    Returns (values, taxids, taxid -> species table, reads)."""
     rng = np.random.default_rng(11)
     shared = bytes(rng.choice(ACGT, 120))
     genomes = []
-    for g in range(40):
+    for g in range(n_genomes):
         pre = bytes(rng.choice(ACGT, 400))
         post = bytes(rng.choice(ACGT, 400))
         genomes.append((pre + shared + post, 3 + g))
@@ -99,7 +99,13 @@ def skew_world():
         st = int(rng.integers(0, len(g) - 150))
         reads.append(g[st: st + 150])
     reads += [genomes[i][0][350:500] for i in range(8)]
-    return values, taxids, np.arange(64, dtype=np.int32), reads
+    t2s = np.arange(max(64, n_genomes + 3), dtype=np.int32)
+    return values, taxids, t2s, reads
+
+
+@pytest.fixture(scope="module")
+def skew_world():
+    return skew_data(40)
 
 
 @pytest.fixture(scope="module")
@@ -162,6 +168,20 @@ def test_match_deep_tier_flow(deep_world):
                 ovd_budget=8192)
     assert want["n_ovd"] > 0
     m, counts = _port(values, taxids, t2s, reads, 152, cap=4096)
+    _assert_same(m, counts, want)
+
+
+def test_match_groups_deeper_than_a_warp():
+    """72 genomes share the block: windows of 72 rows, deeper than a warp
+    of 32 lanes, against the JAX single-tier flow at the full depth."""
+    values, taxids, t2s, reads = skew_data(72)
+    index = jax_index(values, taxids)
+    m, counts = _port(values, taxids, t2s, reads, 160, cap=4096)
+    want = _jax(index, t2s, reads, 160, max_matches=1 << 20, cap=72)
+    assert want["n_over_cap"] == 0 and counts["n_over_cap"] == 0
+    aa = values >> np.uint64(24)
+    starts = np.flatnonzero(np.r_[True, aa[1:] != aa[:-1]])
+    assert np.diff(np.r_[starts, len(aa)]).max() >= 64
     _assert_same(m, counts, want)
 
 
