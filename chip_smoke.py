@@ -10,27 +10,33 @@ Phases, one line each; any failure exits non-zero:
   probes    the device-cost probes P1-P4 (metabuli_tpu_torch.tools.probes,
             not on the classify path) against their plain versions at the
             profiling scripts' sizes, with their median ms
-  db        the smoke DB: bench.py's adversarial "skew" world (2 genera x
-            192 species, a 6 kb wobble-diverged core + 94 kb unique each),
-            6-frame metamers of every genome window extracted with K1,
-            unique per (value, species), padded with never-matching decoy
-            rows (bench.py's scheme) to 2^28 rows
+  db        the smoke DB: the adversarial "skew" world of
+            metabuli_tpu_torch.tools.world (2 genera x 192 species, a 6 kb
+            wobble-diverged core + 94 kb unique each; the same genomes as
+            bench.py's from the same seed), 6-frame metamers of
+            every genome window extracted with K1, unique per (value,
+            species), padded with never-matching decoy rows to 2^28 rows
   kernels   K1-K4 against their plain versions at the main path's shapes
-            (8,192 reads of 150 bp): integers equal, float32 bitwise; the
-            median ms of each over 5 runs after a warm-up, from CUDA events,
-            for the wrapper (ms) and the plain version; its kernels' device
-            time alone (launch_ms, mean of 5 from a torch.profiler trace);
-            bound_ms from the batch's own bytes (tools/probes.bound); K2's
-            stash size and the warps whose write walked again
+            (8,192 reads of 150 bp), and K1 also at the DB build's shape
+            (one launch of 64 genomes of 100 kb): integers equal, float32
+            bitwise; the median ms of each over 5 runs after a warm-up,
+            from CUDA events, for the wrapper (ms) and the plain version;
+            its kernels' device time alone (launch_ms, mean of 5 from a
+            torch.profiler trace); bound_ms from the batch's own bytes
+            (tools/probes.bound); K2's stash size and the warps whose write
+            walked again
   parity    one 8,192-read batch classified through the kernels and
             through the plain versions gives identical classification lines
   tiny      the two-genome world of .claude/skills/verify/SKILL.md through
             the CLI: all 120 reads classified, the report 50/50
-  classify  the CLI on 65,536 reads of 150 bp (bench.py's sample_reads,
+  classify  the CLI on 65,536 reads of 150 bp (tools.world.sample_reads,
             max_mut 2, 10 % random reads), 8,192 per batch: reads/s, stage
             times, peak memory, and every kernel's launch count > 0
 
-The last two lines are the kernels' JSON record and the device record.
+The last three lines are the kernels' JSON record (K1-K4, then the probes
+P1-P4 with their launches in the classify run, 0 since they are off the
+path, and launch_ms = their wrapper ms), nvidia-smi's name and power
+limit, and the device record.
 """
 
 from __future__ import annotations
@@ -50,6 +56,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROWS = 1 << 28  # smoke DB rows after decoy padding
+DB_CHUNK = 64   # genomes per K1 launch of the DB build
+# classified reads of the 65,536 (world and reads from seed 0): the count
+# every earlier run of this script gave on the card
+CLASSIFIED = 58_985
 
 # kernel name -> its CUDA functions, as the profiler names them
 KERNEL_FUNCTIONS = {"extract_metamers": ["extract_kernel"],
@@ -81,53 +91,12 @@ def fail(phase: str, msg: str) -> None:
 
 
 # ------------------------------------------------------------------ world
-def write_taxonomy(d: str, nodes, names) -> None:
-    os.makedirs(d, exist_ok=True)
-    with open(os.path.join(d, "nodes.dmp"), "w") as fh:
-        fh.write("".join(f"{t}\t|\t{p}\t|\t{r}\t|\n" for t, p, r in nodes))
-    with open(os.path.join(d, "names.dmp"), "w") as fh:
-        fh.write("".join(f"{t}\t|\t{n}\t|\t\t|\tscientific name\t|\n"
-                         for t, n in names.items()))
-    open(os.path.join(d, "merged.dmp"), "w").close()
-
-
-def skew_world(tmp: str):
-    """(taxonomy, [(genome, species taxid)], rng): bench.build_world's
-    "skew" world, drawn in the same order from seed 0."""
-    import bench
-    from metabuli_tpu_torch.db.taxonomy import Taxonomy
-
-    spec = bench.WORLDS["skew"]
-    rng = np.random.default_rng(0)
-    nodes = [(1, 1, "no rank"), (2, 1, "superkingdom")]
-    names = {1: "root", 2: "Bacteria"}
-    tid, species = 3, []
-    for g in range(spec["clades"]):
-        gid = tid
-        nodes.append((tid, 2, "genus")); names[tid] = f"G{g}"; tid += 1
-        for s in range(spec["per_clade"]):
-            nodes.append((tid, gid, "species")); names[tid] = f"S{g}_{s}"
-            species.append((tid, g)); tid += 1
-    d = os.path.join(tmp, "skew_taxonomy")
-    write_taxonomy(d, nodes, names)
-    tax = Taxonomy.from_dmp(*(os.path.join(d, f) for f in
-                              ("names.dmp", "nodes.dmp", "merged.dmp")))
-    acgt = np.array(list(b"ACGT"), np.uint8)
-    cores = [rng.choice(acgt, spec["core_len"]) for _ in range(spec["clades"])]
-    genomes = []
-    for sp, clade in species:
-        uniq = rng.choice(acgt, spec["unique_len"])
-        core = bench._mutate(cores[clade], spec["divergence"], spec["wobble"],
-                             rng)
-        genomes.append((bytes(np.concatenate([core, uniq])), sp))
-    return tax, genomes, rng
-
-
 def build_db(db_dir: str, tax, genomes, device, rows: int = 0) -> dict:
     """Metamer DB of species-level genomes: 6-frame metamers of every
-    window (K1), unique per (value, species) (each genome is its own
-    species, so the LCA taxid is that species), optionally padded with
-    decoy rows to ``rows`` (bench.py's pad_with_decoys scheme)."""
+    window (K1, DB_CHUNK genomes a launch), unique per (value, species)
+    (each genome is its own species, so the LCA taxid is that species),
+    optionally padded with decoy rows to ``rows`` (the decoy scheme of
+    the repository's benchmark script, bench.py)."""
     import torch
 
     from metabuli_tpu_torch.db.formats import DbParameters
@@ -140,12 +109,13 @@ def build_db(db_dir: str, tax, genomes, device, rows: int = 0) -> dict:
     sp_int = [tax.to_internal(sp) for _, sp in genomes]
     assert all(int(tax.species_of[t]) == t for t in sp_int)
     vals, taxs = [], []
-    for i in range(0, len(genomes), 64):  # 64 genomes per K1 launch
-        chunk = genomes[i:i + 64]
+    for i in range(0, len(genomes), DB_CHUNK):
+        chunk = genomes[i:i + DB_CHUNK]
         codes, lens = encode_seqs_padded([g for g, _ in chunk])
         mm = encode.extract_metamers(torch.from_numpy(codes).to(device),
                                      torch.from_numpy(lens).to(device))
-        t = torch.tensor(sp_int[i:i + 64], dtype=torch.int64, device=device)
+        t = torch.tensor(sp_int[i:i + DB_CHUNK], dtype=torch.int64,
+                         device=device)
         vals.append(mm.value[mm.valid])
         taxs.append(t[:, None, None].expand(mm.valid.shape)[mm.valid])
         del mm
@@ -166,10 +136,11 @@ def build_db(db_dir: str, tax, genomes, device, rows: int = 0) -> dict:
     n_real = int(v.numel())
     n_decoys = max(0, rows - n_real) if rows else 0
     if n_decoys:
-        # bench.py's decoys: uniform 40-bit AA keys (colliding keys dropped,
-        # so every genome-derived group stays as it is), uniform codons,
-        # taxids drawn from the real species; a 0.1 % surplus of draws
-        # makes up for the dropped keys so the table has exactly `rows`
+        # bench.py's decoys: uniform 40-bit AA keys (colliding
+        # keys dropped, so every genome-derived group stays as it is),
+        # uniform codons, taxids drawn from the real species; a 0.1 %
+        # surplus of draws makes up for the dropped keys so the table has
+        # exactly `rows`
         rng = np.random.default_rng(12345)
         n_draw = n_decoys + n_decoys // 1000 + 1024
         aa = torch.from_numpy(rng.integers(0, 1 << 40, size=n_draw,
@@ -242,8 +213,9 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def kernel_phase(clf, metas, rows) -> dict:
-    """K1-K4 against their plain versions on one batch's tensors."""
+def kernel_phase(clf, metas, rows, db_chunk) -> dict:
+    """K1-K4 against their plain versions on one batch's tensors, and K1
+    also on one launch of the DB build (``db_chunk``: its genomes)."""
     import torch
 
     from metabuli_tpu_torch.classify import device_chain, device_combine
@@ -290,8 +262,9 @@ def kernel_phase(clf, metas, rows) -> dict:
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def record(name, fn_k, fn_p, cost):
-        """``cost(outputs)`` -> least bytes of the call."""
+    def record(name, fn_k, fn_p, cost, shape=None):
+        """``cost(outputs)`` -> least bytes of the call; a second ``shape``
+        of a kernel is kept under that key of its record."""
         got, want = fn_k(), fn_p()
         torch.cuda.synchronize()
         # K2's count of warps that walked again is the kernel's own
@@ -300,11 +273,16 @@ def kernel_phase(clf, metas, rows) -> dict:
         err = max_abs_err(same(got), same(want))
         b_ms, b_by = bound(cost(got))
         l_ms, parts = launch_ms(name, fn_k)
-        out[name] = {"max_abs_err": err, "ms": median_ms(fn_k),
-                     "launch_ms": l_ms, "plain_ms": median_ms(fn_p),
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        say("kernels", kernel=name, equal=err == 0,
-            **{k: round(out[name][k], 4)
+        rec = {"max_abs_err": err, "ms": median_ms(fn_k), "launch_ms": l_ms,
+               "plain_ms": median_ms(fn_p), "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        if shape is None:
+            out[name] = rec
+        else:
+            out[name][shape] = rec
+        say("kernels", kernel=name, **({} if shape is None else
+                                       {"shape": shape}), equal=err == 0,
+            **{k: round(rec[k], 4)
                for k in ("ms", "launch_ms", "plain_ms", "bound_ms")},
             bound_by=b_by, launch_parts_ms=[round(p, 4) for p in parts])
         if err != 0:
@@ -312,11 +290,19 @@ def kernel_phase(clf, metas, rows) -> dict:
         return got
 
     # least bytes: every input read once, every output written once (K2:
-    # only the table entries its queries need)
+    # only the table entries its queries need; K4: only what it must read)
     mm = record("extract_metamers",
                 lambda: encode.extract_metamers(codes, lens),
                 lambda: encode.extract_metamers_plain(codes, lens),
                 lambda mm: nbytes([codes, lens, *mm]))
+    gc, gl = encode_seqs_padded([g for g, _ in db_chunk])
+    gc, gl = torch.from_numpy(gc).to(dev), torch.from_numpy(gl).to(dev)
+    say("kernels", db_chunk_rows=gc.shape[0], db_chunk_bases=gc.shape[1])
+    record("extract_metamers",
+           lambda: encode.extract_metamers(gc, gl),
+           lambda: encode.extract_metamers_plain(gc, gl),
+           lambda r: nbytes([gc, gl, *r]), shape="db_chunk")
+    del gc, gl
     idx, W = clf.dev_index, mm.value.shape[2]
     q = (mm.value.reshape(-1), mm.valid.reshape(-1), mm.dna48.reshape(-1))
     gs, ge, hit = pipeline._search_groups(idx, q[0], q[1])
@@ -339,6 +325,8 @@ def kernel_phase(clf, metas, rows) -> dict:
     dtx = clf.device_taxonomer
     cargs = (m.qid, m.species, frame, m.pos, ham, m.dna, h16, dtx.min_depth)
     kw = dict(max_shift=dtx.p.max_codon_shift)
+    # K3 loads each of its seven int32 columns per row and the int32
+    # min_depth table, and writes five 32-bit path columns and a flag a row
     chain = record("chain_matches",
                    lambda: device_chain.chain_matches(*cargs, **kw),
                    lambda: device_chain.chain_matches_plain(*cargs, **kw),
@@ -347,12 +335,19 @@ def kernel_phase(clf, metas, rows) -> dict:
         compact_paths(chain, m.qid, m.species, m.pos, h16))
     rl = torch.as_tensor(np.array([x.read_len for x in metas], np.int32),
                          device=dev)
+    # K4 reads every path's start, end and score, a boundary-codon word
+    # (sh16 or eh16) only for each side of a path that a trim cuts, and per
+    # group its bounds, its head's read and that read's length (once per
+    # read); it writes a score per group
+    P, G = paths.read.numel(), gstart.numel() - 1
+    n_trim = int(device_combine.combine_trims_plain(paths, gstart, rl)[1])
+    n_read = int(torch.unique(paths.read[gstart[:-1].long()]).numel())
     record("combine_paths",
            lambda: [device_combine.combine_paths(paths, gstart, rl)],
            lambda: [device_combine.combine_paths_plain(paths, gstart, rl)],
-           lambda r: nbytes([*paths, gstart, rl, *r]))
-    say("kernels", matches=counts["n_matches"], paths=paths.read.numel(),
-        groups=gstart.numel() - 1)
+           lambda r: 12 * P + 4 * n_trim + 4 * (G + 1) + 8 * G + 4 * n_read)
+    say("kernels", matches=counts["n_matches"], paths=P, groups=G,
+        trimmed_sides=n_trim, group_reads=n_read)
     return out
 
 
@@ -392,7 +387,8 @@ def main() -> int:
     # ---- probes (not on the classify path)
     from metabuli_tpu_torch.tools import probes
 
-    for name, r in probes.run(dev).items():
+    probe_res = probes.run(dev)
+    for name, r in probe_res.items():
         say("probes", kernel=name, replaces=r["replaces"],
             equal=r["max_abs_err"] == 0, ms=round(r["ms"], 4),
             plain_ms=round(r["plain_ms"], 4),
@@ -405,18 +401,18 @@ def main() -> int:
             fail("probes", f"{name} differs from its plain version")
     torch.cuda.empty_cache()
 
-    import bench
+    from metabuli_tpu_torch.tools import world
 
     tmp = tempfile.mkdtemp(prefix="metabuli_smoke_")
     try:
         # ---- db
-        tax, genomes, rng = skew_world(tmp)
+        tax, genomes, rng = world.skew_world(tmp)
         db = os.path.join(tmp, "db")
         info = build_db(db, tax, genomes, dev, rows=ROWS)
         say("db", **info)
         if info["rows"] != ROWS:
             fail("db", f"{info['rows']} rows, asked for {ROWS}")
-        reads = bench.sample_reads(genomes, rng, 65_536, 150, max_mut=2)
+        reads = world.sample_reads(genomes, rng, 65_536, 150, max_mut=2)
         fq = os.path.join(tmp, "reads.fq")
         write_fastq(fq, reads)
 
@@ -428,7 +424,7 @@ def main() -> int:
             index_rows=clf.dev_index.n,
             resident_gib=round(resident / 2**30, 3))
         metas, rows = next(clf._iter_batches(fq, None))
-        timings = kernel_phase(clf, metas, rows)
+        timings = kernel_phase(clf, metas, rows, genomes[:DB_CHUNK])
         lines = {}
         for plain in (False, True):
             torch.cuda.reset_peak_memory_stats(dev)
@@ -455,10 +451,10 @@ def main() -> int:
         g1 = bytes(trng.choice(acgt, 20000))
         g2 = bytes(trng.choice(acgt, 20000))
         tdir = os.path.join(tmp, "tiny")
-        write_taxonomy(os.path.join(tdir, "taxonomy"),
-                       [(1, 1, "no rank"), (2, 1, "genus"),
-                        (4, 2, "species"), (8, 2, "species")],
-                       {t: f"Name{t}" for t in (1, 2, 4, 8)})
+        world.write_taxonomy(os.path.join(tdir, "taxonomy"),
+                             [(1, 1, "no rank"), (2, 1, "genus"),
+                              (4, 2, "species"), (8, 2, "species")],
+                             {t: f"Name{t}" for t in (1, 2, 4, 8)})
         from metabuli_tpu_torch.db.taxonomy import Taxonomy
 
         ttax = Taxonomy.from_dmp(*(os.path.join(tdir, "taxonomy", f) for f in
@@ -498,17 +494,24 @@ def main() -> int:
                                   for k, v in s["stage_ms"].items()})
         if s["reads"] != 65_536 or n_lines != 65_536:
             fail("classify", f"{s['reads']} reads, {n_lines} output lines")
-        if s["classified"] < 65_536 // 2:
-            fail("classify", f"only {s['classified']} reads classified")
+        if s["classified"] != CLASSIFIED:
+            fail("classify", f"{s['classified']} reads classified, "
+                             f"expected {CLASSIFIED}")
         if min(counts.values()) == 0:
             fail("classify", f"a kernel never launched: {counts}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    probe_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], **timings[name]}
-        for name, src, rep in KERNELS]}))
+        for name, src, rep in KERNELS] + [
+        {"name": name, "route": r["route"], "source": r["source"],
+         "replaces": r["replaces"], "launches": build.launches[name],
+         "launch_ms": r["ms"], **{k: r[k] for k in probe_keys}}
+        for name, r in probe_res.items()]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -238,12 +238,14 @@ class Classifier:
         as_dev = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)
         read_lens = np.array([m.read_len for m in metas], np.int32)
         self.timer.start()
+        d_codes, d_lens = as_dev(codes, np.uint8), as_dev(lens, np.int32)
+        d_pos = as_dev([r[2] for r in rows], np.int32)
+        d_qid = as_dev([r[1] for r in rows], np.int32)
+        self.timer.mark("upload")
         handle, counts = self.device_taxonomer.dispatch(
-            self.dev_index, self.d_species, as_dev(codes, np.uint8),
-            as_dev(lens, np.int32), as_dev([r[2] for r in rows], np.int32),
-            as_dev([r[1] for r in rows], np.int32), read_lens,
-            cap=self.cap, syncmer=bool(par.syncmer), smer_len=par.smer_len,
-            plain=plain, timer=self.timer)
+            self.dev_index, self.d_species, d_codes, d_lens, d_pos, d_qid,
+            read_lens, cap=self.cap, syncmer=bool(par.syncmer),
+            smer_len=par.smer_len, plain=plain, timer=self.timer)
         t1 = time.perf_counter()
         results = self.device_taxonomer.drain(handle, read_lens, len(metas))
         self.timer.mark("finish")

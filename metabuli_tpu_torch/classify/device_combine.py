@@ -42,24 +42,36 @@ def sort_paths(paths: FlatPaths):
     return sp, group_start.to(torch.int32)
 
 
-def _part_score(h16, rng, from_right: bool):
-    """getRight/LeftPartScore (`Match.h:46-86`) over ``rng`` codons."""
+def _part_table(h16, from_right: bool):
+    """[P, 9] float32: getRight/LeftPartScore (`Match.h:46-86`) over 0..8
+    codons, each column the previous one plus the next codon's term (the
+    reference's order of float32 additions)."""
     s = torch.zeros(h16.shape, dtype=torch.float32, device=h16.device)
+    cols = [s]
     for i in range(8):
         h = (h16 >> (2 * i)) & 3 if from_right else (h16 >> (14 - 2 * i)) & 3
-        term = torch.where(h == 0, 3.0, 2.0 - 0.5 * h.to(torch.float32))
-        s = s + torch.where(i < rng, term, 0.0)
-    return s
+        s = s + torch.where(h == 0, 3.0, 2.0 - 0.5 * h.to(torch.float32))
+        cols.append(s)
+    return torch.stack(cols, 1)
 
 
 def combine_paths_plain(sp: FlatPaths, group_start: torch.Tensor,
                         read_lens: torch.Tensor) -> torch.Tensor:
     """Plain version of K4: the greedy runs over path rank p, every group
     in parallel, with a [P, G] table of accepted extents."""
+    return combine_trims_plain(sp, group_start, read_lens)[0]
+
+
+def combine_trims_plain(sp: FlatPaths, group_start: torch.Tensor,
+                        read_lens: torch.Tensor):
+    """``combine_paths_plain``'s scores, and the number of (path, side)
+    pairs trimmed at least once: the boundary-codon words (``sh16`` or
+    ``eh16``) the greedy must read, which a bound on K4's bytes counts."""
     dev = sp.read.device
     G = group_start.numel() - 1
+    n_trimmed = torch.zeros((), dtype=torch.int64, device=dev)
     if G == 0:
-        return torch.zeros(0, dtype=torch.float32, device=dev)
+        return torch.zeros(0, dtype=torch.float32, device=dev), n_trimmed
     gs = group_start[:-1].to(torch.int64)
     run = group_start[1:].to(torch.int64) - gs
     P = int(run.max())
@@ -68,13 +80,17 @@ def combine_paths_plain(sp: FlatPaths, group_start: torch.Tensor,
     acc_n = torch.zeros(G, dtype=torch.int64, device=dev)
     total = torch.zeros(G, dtype=torch.float32, device=dev)
     last = sp.read.numel() - 1
+    left_tab = _part_table(sp.sh16, False)
+    right_tab = _part_table(sp.eh16, True)
     for p in range(P):
         occ = p < run
         r = torch.clamp(gs + p, max=last)
         start, end, score = sp.start[r], sp.end[r], sp.score[r]
-        sh16, eh16 = sp.sh16[r], sp.eh16[r]
+        left, right_part = left_tab[r], right_tab[r]
         rejected = ~occ
-        for j in range(p):
+        trim_left = trim_right = torch.zeros_like(occ)
+        # slots past the most any group has accepted change nothing
+        for j in range(int(acc_n.max())):
             has_j = j < acc_n
             a_s, a_e = acc_start[j], acc_end[j]
             disjoint = (end < a_s) | (a_e < start)
@@ -84,14 +100,18 @@ def combine_paths_plain(sp: FlatPaths, group_start: torch.Tensor,
             reject = overlap & (full | (ov >= 24))
             trim = overlap & ~full & (ov < 24)
             right = start < a_s
-            rng = torch.clamp(torch.div(ov, 3, rounding_mode="floor"), 0, 8)
-            part = torch.where(right, _part_score(eh16, rng, True),
-                               _part_score(sh16, rng, False))
+            rng = torch.clamp(torch.div(ov, 3, rounding_mode="floor"),
+                              0, 8)[:, None]
+            part = torch.where(right, right_part.gather(1, rng)[:, 0],
+                               left.gather(1, rng)[:, 0])
             t_score = score - part - torch.remainder(ov, 3).to(torch.float32)
             score = torch.where(trim, t_score, score)
             start = torch.where(trim & ~right, a_e + 1, start)
             end = torch.where(trim & right, a_s - 1, end)
             rejected = rejected | reject
+            trim_left = trim_left | (trim & ~right)
+            trim_right = trim_right | (trim & right)
+        n_trimmed = n_trimmed + trim_left.sum() + trim_right.sum()
         accept = ~rejected
         at = torch.nonzero(accept).squeeze(1)
         acc_start[acc_n[at], at] = start[at]
@@ -101,35 +121,36 @@ def combine_paths_plain(sp: FlatPaths, group_start: torch.Tensor,
     rl = read_lens[torch.clamp(sp.read[gs].to(torch.int64), 0,
                                read_lens.numel() - 1)]
     return torch.clamp(total / torch.clamp(rl, min=1).to(torch.float32),
-                       max=1.0)
+                       max=1.0), n_trimmed
 
 
 def combine_paths(sp: FlatPaths, group_start: torch.Tensor,
                   read_lens: torch.Tensor) -> torch.Tensor:
-    """Kernel K4 wrapper (one thread per group): [G] float32 species
+    """Kernel K4 wrapper (a thread per group): [G] float32 species
     scores. CPU tensors take the plain version."""
     if sp.read.device.type == "cpu":
         return combine_paths_plain(sp, group_start, read_lens)
-    cols = [t.contiguous() for t in sp]
-    group_start = group_start.to(torch.int32).contiguous()
-    read_lens = read_lens.to(torch.int32).contiguous()
-    build.require_cuda("combine_paths", *cols, group_start, read_lens)
-    if cols[4].dtype != torch.float32:
-        raise TypeError("combine_paths: path scores must be float32")
-    read, _, start, end, score, _, sh16, eh16 = cols
-    dev = read.device
+    build.require_cuda("combine_paths", *sp, group_start, read_lens)
+    if sp.score.dtype != torch.float32 or {
+            t.dtype for t in (*sp[:4], *sp[5:], group_start, read_lens)
+    } != {torch.int32}:
+        raise TypeError("combine_paths: float32 path scores, every other "
+                        "column, group_start and read_lens int32")
+    dev = sp.read.device
     G = group_start.numel() - 1
-    out = torch.empty(max(G, 0), dtype=torch.float32, device=dev)
     if G <= 0:
-        return out
-    acc_start = torch.empty_like(start)
-    acc_end = torch.empty_like(end)
+        return torch.empty(0, dtype=torch.float32, device=dev)
+    # one allocation: the [G] scores, then, 8-byte aligned, a row per path
+    # for the accepted extents of the path's group
+    off = G + (G & 1)
+    buf = torch.empty(off + 2 * sp.read.numel(), dtype=torch.int32,
+                      device=dev)
+    out = buf[:G].view(torch.float32)
     rc = build.get_lib().mtb_combine_paths(
-        G, group_start.data_ptr(), read.data_ptr(), start.data_ptr(),
-        end.data_ptr(), score.data_ptr(), sh16.data_ptr(),
-        eh16.data_ptr(), read_lens.data_ptr(), read_lens.numel(),
-        acc_start.data_ptr(), acc_end.data_ptr(), out.data_ptr(),
-        build.stream(dev))
+        G, group_start.data_ptr(), sp.read.data_ptr(), sp.start.data_ptr(),
+        sp.end.data_ptr(), sp.score.data_ptr(), sp.sh16.data_ptr(),
+        sp.eh16.data_ptr(), read_lens.data_ptr(), read_lens.numel(),
+        buf.data_ptr() + 4 * off, out.data_ptr(), build.stream(dev))
     build.check(rc, "combine_paths")
     build.launches["combine_paths"] += 1
     return out

@@ -1,10 +1,11 @@
 """Build and load the Hopper kernels: ``csrc/*.cu`` -> ``libmetabuli_cuda.so``.
 
-nvcc compiles every CUDA source of this directory into ONE shared library
-with a plain C interface, loaded with ctypes (no PyTorch headers, so a
-build takes seconds). The build runs at first use into the package's
-git-ignored ``_build/`` directory and again whenever a source is newer
-than the library. ``-fmad=false`` keeps every float32 product and sum a
+nvcc compiles every CUDA source of this directory, one process per source
+started together, and links them into ONE shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes
+seconds). The build runs at first use into the package's git-ignored
+``_build/`` directory and again whenever a source is newer than the
+library. ``-fmad=false`` keeps every float32 product and sum a
 separate IEEE operation: the chain and combine scores are compared bitwise
 with the reference package's.
 
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SO = os.path.join(BUILD_DIR, "libmetabuli_cuda.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 # kernel name -> launches since the last reset: K1-K4 of the classify
@@ -62,9 +63,9 @@ _SIGNATURES = {
     "mtb_chain_matches": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P],
     # n_groups, group_start, read, start, end, score, sh16, eh16,
-    # read_lens, n_reads, acc_start, acc_end, out_score, stream
+    # read_lens, n_reads, accepted, out_score, stream
     "mtb_combine_paths": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _P, _P, _P, _P],
+                          _P, _P, _P],
     # table, n_table, slots, n_tiles, tile_q, out, stream
     "mtb_probe_gather_sum": [_P, _L, _P, _L, _I, _P, _P],
     # table, sorted_slots, bounds, n_tiles, tile_t, out, stream
@@ -93,12 +94,30 @@ def build() -> str:
         if os.path.exists(SO) and os.path.getmtime(SO) >= newest:
             return SO
         tmp = f"{SO}.{os.getpid()}.tmp"
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                             capture_output=True, timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(
-                "nvcc build of the CUDA kernels failed:\n"
-                + res.stderr.decode(errors="replace")[-6000:])
+        objs = [os.path.join(BUILD_DIR, os.path.basename(src) + ".o")
+                for src in srcs]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
+                                   src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT)
+                 for src, obj in zip(srcs, objs)]
+        try:
+            logs = [p.communicate(timeout=900)[0].decode(errors="replace")
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = [log for p, log in zip(procs, logs) if p.returncode != 0]
+        if not failed:
+            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp,
+                                  *objs], capture_output=True, timeout=900)
+            if res.returncode != 0:
+                failed = [res.stderr.decode(errors="replace")]
+        if failed:
+            raise RuntimeError("nvcc build of the CUDA kernels failed:\n"
+                               + "\n".join(failed)[-6000:])
         os.replace(tmp, SO)
         return SO
 
@@ -133,9 +152,9 @@ def check(rc: int, name: str) -> None:
 def require_cuda(name: str, *tensors) -> None:
     """Wrapper-side argument check: every tensor contiguous and on the
     same CUDA device."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{name}: tensors must share one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
+    # get_device() is -1 on the CPU and the card's index on CUDA
+    devices = {t.get_device() for t in tensors}
+    if len(devices) != 1 or -1 in devices:
+        raise ValueError(f"{name}: tensors must share one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")

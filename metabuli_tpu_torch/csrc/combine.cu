@@ -4,9 +4,7 @@
 // combine_paths (:66-269): there, each group's paths are gathered into a
 // [p_max, G] grid and two nested fori loops run the greedy acceptance for
 // every group at once; groups with more than p_max paths ship to the host
-// for an exact re-combine. Here each thread walks its group's sorted paths
-// whole, keeping the accepted extents in the group's own rows of two
-// scratch arrays, so no group overflows and there is no host re-combine.
+// for an exact re-combine. Here every group is combined whole on the card.
 //
 // Rules (combineMatchPaths, Taxonomer.cpp:410-468): a path that overlaps an
 // accepted one entirely, or by >= 24 bases, is rejected; a smaller overlap
@@ -15,14 +13,23 @@
 // read length). Float32 operations keep the reference order, and the
 // library is built with -fmad=false.
 //
-// Bound on the card: latency. A group holds a handful of paths, so a
-// thread does O(paths^2) overlap tests in registers and L1; threads of a
-// warp diverge on group size.
+// Bound on the card: latency, not bytes (the smoke batch's paths are
+// 3.6 MB, of which the greedy needs 1.6 MB; it has 18,130 groups of 6.25
+// paths on average, at most 18). The greedy is sequential over a group's
+// paths, so a thread walks its group, keeping the accepted extents in the
+// group's own rows of a buffer the wrapper allocates with the output
+// (int2 rows, one per path: a group never accepts more paths than it
+// has), and a warp lasts as long as its largest group.
+// Measured on the smoke batch (PERF.md, Findings): 8 or 32 lanes a
+// group (shuffled row tiles, a ballot over the accepted extents) were
+// slower, and the accepted extents in shared memory were no faster.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int THREADS = 128;
 
 __device__ __forceinline__ float part_score(int h16, int rng, bool right) {
   float s = 0.0f;
@@ -33,20 +40,20 @@ __device__ __forceinline__ float part_score(int h16, int rng, bool right) {
   return s;
 }
 
-__global__ void combine_kernel(int n_groups, const int32_t* __restrict__ gstart,
-                               const int32_t* __restrict__ read,
-                               const int32_t* __restrict__ start,
-                               const int32_t* __restrict__ end,
-                               const float* __restrict__ score,
-                               const int32_t* __restrict__ sh16,
-                               const int32_t* __restrict__ eh16,
-                               const int32_t* __restrict__ read_lens,
-                               int n_reads, int32_t* __restrict__ acc_start,
-                               int32_t* __restrict__ acc_end,
-                               float* __restrict__ out) {
-  int g = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(THREADS)
+combine_kernel(int n_groups, const int32_t* __restrict__ gstart,
+               const int32_t* __restrict__ read,
+               const int32_t* __restrict__ start,
+               const int32_t* __restrict__ end,
+               const float* __restrict__ score,
+               const int32_t* __restrict__ sh16,
+               const int32_t* __restrict__ eh16,
+               const int32_t* __restrict__ read_lens, int n_reads,
+               int2* __restrict__ accepted, float* __restrict__ out) {
+  const int g = blockIdx.x * THREADS + threadIdx.x;
   if (g >= n_groups) return;
-  int s = gstart[g], e = gstart[g + 1];
+  const int s = gstart[g], e = gstart[g + 1];
+  int2* const acc = accepted + s;  // the group's rows
   int n_acc = 0;
   float total = 0.0f;
   for (int p = s; p < e; ++p) {
@@ -54,31 +61,29 @@ __global__ void combine_kernel(int n_groups, const int32_t* __restrict__ gstart,
     float sc = score[p];
     bool rejected = false;
     for (int j = 0; j < n_acc; ++j) {
-      int a_s = acc_start[s + j], a_e = acc_end[s + j];
-      if (ce < a_s || a_e < cs) continue;
-      int ov = (ce < a_e ? ce : a_e) - (cs > a_s ? cs : a_s) + 1;
+      const int2 a = acc[j];
+      if (ce < a.x || a.y < cs) continue;
+      const int ov = min(ce, a.y) - max(cs, a.x) + 1;
       if (ov == ce - cs + 1 || ov >= 24) {
         rejected = true;
         break;
       }
-      int rng = ov / 3 > 8 ? 8 : ov / 3;
-      bool right = cs < a_s;
-      float part = right ? part_score(eh16[p], rng, true)
-                         : part_score(sh16[p], rng, false);
+      const int rng = min(ov / 3, 8);
+      const bool right = cs < a.x;
+      const float part = right ? part_score(eh16[p], rng, true)
+                               : part_score(sh16[p], rng, false);
       sc = sc - part - (float)(ov % 3);
-      if (right) ce = a_s - 1; else cs = a_e + 1;
+      if (right) ce = a.x - 1; else cs = a.y + 1;
     }
     if (!rejected) {
-      acc_start[s + n_acc] = cs;
-      acc_end[s + n_acc] = ce;
-      ++n_acc;
+      acc[n_acc++] = make_int2(cs, ce);
       total = total + sc;
     }
   }
   int r = read[s];
   r = r < 0 ? 0 : (r > n_reads - 1 ? n_reads - 1 : r);
-  int rl = read_lens[r] > 1 ? read_lens[r] : 1;
-  float v = total / (float)rl;
+  const int rl = read_lens[r] > 1 ? read_lens[r] : 1;
+  const float v = total / (float)rl;
   out[g] = v < 1.0f ? v : 1.0f;
 }
 
@@ -87,15 +92,13 @@ __global__ void combine_kernel(int n_groups, const int32_t* __restrict__ gstart,
 extern "C" int mtb_combine_paths(int n_groups, const int32_t* group_start,
                                  const int32_t* read, const int32_t* start,
                                  const int32_t* end, const float* score,
-                                 const int32_t* sh16,
-                                 const int32_t* eh16, const int32_t* read_lens,
-                                 int n_reads, int32_t* acc_start,
-                                 int32_t* acc_end, float* out,
+                                 const int32_t* sh16, const int32_t* eh16,
+                                 const int32_t* read_lens, int n_reads,
+                                 int2* accepted, float* out,
                                  cudaStream_t stream) {
-  int threads = 128;
-  int blocks = (n_groups + threads - 1) / threads;
-  combine_kernel<<<blocks, threads, 0, stream>>>(
+  const int blocks = (n_groups + THREADS - 1) / THREADS;
+  combine_kernel<<<blocks, THREADS, 0, stream>>>(
       n_groups, group_start, read, start, end, score, sh16, eh16, read_lens,
-      n_reads, acc_start, acc_end, out);
+      n_reads, accepted, out);
   return (int)cudaGetLastError();
 }

@@ -1,92 +1,147 @@
-// K1: 6-frame metamer extraction, one thread per (read, frame, window).
+// K1: 6-frame metamer extraction, one CTA per row chunk.
 //
 // Replaces the XLA block metabuli_tpu/ops/encode.py::extract_metamers
 // (:72-272) with _syncmer_keep (:275-299): there, base triples go through
 // a 64-way select tree and every frame is a stride-3 slice, with the
-// reverse frames packed in flipped coordinates. Here each thread reads
-// the 24 bases of its window straight from the read and packs them.
+// reverse frames packed in flipped coordinates.
 //
-// Bound on the card: the writes. A 150-base read yields 6 x 41 windows of
-// 8 + 8 + 4 + 1 bytes from 150 bytes of input, so the kernel streams its
-// outputs at memory speed; the 24 byte loads per thread hit L1/L2 (the
-// windows of one read overlap). No shared memory, no inter-thread work.
+// Bound on the card: the output bytes. Every (read, frame, window) slot
+// writes value, dna48 (8 B each), pos (4 B) and valid (1 B): 21 B a slot,
+// against 1 B a base of input, so the kernel is a stream of stores. The
+// design keeps everything else off the memory path:
+//   * grid (row, chunk): a CTA takes CHUNK windows of one row (a short
+//     read is one chunk; a 100 kb genome is ~130) plus the 23-base halo
+//     the chunk's last window reaches, so long rows tile the same way;
+//     its place comes from blockIdx, with no 64-bit division;
+//   * the chunk's bases are loaded once into shared memory with 4-byte
+//     coalesced loads; one pass then decodes each frame's codons once
+//     (6-bit code, amino acid, codon number, valid flag) into a shared
+//     array, through the two 64-entry codon tables staged in shared
+//     memory; with syncmers on, each s-mer value is computed once per
+//     codon position;
+//   * each thread then packs its slots' windows from the shared codons and
+//     writes the four outputs; consecutive threads hold consecutive
+//     windows of a frame, so every store is coalesced.
+// The stores still take ~2x their bound at the main path's shape: a
+// 150-base read is one CTA of 252 slots whose loads, decode and stores
+// follow one another, so per-CTA latency, not bandwidth, sets the pace.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ __forceinline__ int codon6(const uint8_t* read, int p, int L,
-                                      bool reverse) {
-  // raw 6-bit codon at base p (reverse complement on reverse frames),
-  // -1 if any base is invalid or out of the padded row
-  if (p < 0 || p + 2 >= L) return -1;
-  int b0 = read[p], b1 = read[p + 1], b2 = read[p + 2];
-  if (b0 > 3 || b1 > 3 || b2 > 3) return -1;
-  if (!reverse) return (b0 << 4) | (b1 << 2) | b2;
-  return ((b2 ^ 2) << 4) | ((b1 ^ 2) << 2) | (b0 ^ 2);
-}
+constexpr int K = 8;            // codons per metamer
+constexpr int CHUNK = 256;      // windows per CTA and frame
+constexpr int CODONS = CHUNK + K - 1;
+constexpr int HALO = 3 * (K - 1) + 2;    // 23 bases past the last window
+constexpr int BASES = 3 * CHUNK + HALO;  // + the frame offset, at most 2
+constexpr int WORDS = (BASES + 2 + 3) / 4 + 1;
+constexpr int THREADS = 128;  // a full chunk: 2 windows a thread and frame
+constexpr uint32_t VALID = 1u << 15;
 
-__global__ void extract_kernel(const uint8_t* __restrict__ codes,
-                               const int32_t* __restrict__ lens, int B,
-                               int L, int W, int syncmer, int smer_len,
-                               const int32_t* __restrict__ aa_tab,
-                               const int32_t* __restrict__ num_tab,
-                               int64_t* __restrict__ value,
-                               int32_t* __restrict__ pos,
-                               bool* __restrict__ valid,
-                               int64_t* __restrict__ dna48) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t total = (int64_t)B * 6 * W;
-  if (t >= total) return;
-  int w = (int)(t % W);
-  int f = (int)((t / W) % 6);
-  int b = (int)(t / ((int64_t)W * 6));
-  int len = lens[b];
-  int used = len >= 2 ? 3 * ((len - 2) / 3) : 0;
-  int aa_len = used / 3;
-  bool reverse = f >= 3;
-  int begin = f;
-  if (reverse) begin = (((len % 3) - (f - 3)) % 3 + 3) % 3;
-  pos[t] = begin + 3 * w;
-  const uint8_t* read = codes + (int64_t)b * L;
+__global__ void __launch_bounds__(THREADS)
+extract_kernel(const uint8_t* __restrict__ codes,
+               const int32_t* __restrict__ lens, int L, int W,
+               int syncmer, int smer_len,
+               const int32_t* __restrict__ aa_tab,
+               const int32_t* __restrict__ num_tab,
+               int64_t* __restrict__ value, int32_t* __restrict__ pos,
+               bool* __restrict__ valid, int64_t* __restrict__ dna48) {
+  __shared__ uint32_t s_words[WORDS];
+  __shared__ uint16_t s_tab[64];         // aa << 3 | codon number
+  __shared__ uint16_t s_cod[6][CODONS];  // VALID | aa << 9 | num << 6 | c6
+  __shared__ uint64_t s_smer[6][CODONS];
+  const int b = blockIdx.x;
+  const int w0 = blockIdx.y * CHUNK;
+  const int cw = min(CHUNK, W - w0);
+  const int tid = threadIdx.x;
+  const int len = lens[b];
+  const int aa_len = len >= 2 ? (len - 2) / 3 : 0;
 
-  // the window's codons in packing order (most significant first):
-  // forward codon w+j, reverse codon w+7-j
-  int aa[8];
-  uint64_t aa_part = 0, dna_part = 0, d48 = 0;
-  bool ok = true;
-  for (int j = 0; j < 8; ++j) {
-    int k = reverse ? w + 7 - j : w + j;
-    int c = k < aa_len ? codon6(read, begin + 3 * k, L, reverse) : -1;
-    if (c < 0) {
-      ok = false;
-      break;
-    }
-    aa[j] = aa_tab[c];
-    aa_part = (aa_part << 5) | (uint64_t)aa[j];
-    dna_part = (dna_part << 3) | (uint64_t)num_tab[c];
-    d48 = (d48 << 6) | (uint64_t)c;
-  }
-  if (ok && syncmer) {
-    // s-mers in canonical order: the one at offset o packs slots
-    // o..o+s-1; keep iff the FIRST minimum sits at offset 0 or 8-s
-    int n_smer = 8 - smer_len + 1;
-    uint64_t best = ~0ull;
-    int first = 0;
-    for (int o = 0; o < n_smer; ++o) {
-      uint64_t s = 0;
-      for (int j = 0; j < smer_len; ++j) s = (s << 5) | (uint64_t)aa[o + j];
-      if (s < best) {
-        best = s;
-        first = o;
+  // bases [3 w0, 3 w0 + 3 cw + 23) of the row, as aligned 4-byte words
+  const int base0 = 3 * w0;
+  const int nb = min(3 * cw + HALO, L - base0);
+  const uint8_t* first = codes + (int64_t)b * L + base0;
+  const int shift = (int)((uintptr_t)first & 3);
+  const uint32_t* words = (const uint32_t*)(first - shift);
+  for (int i = tid; i < (shift + nb + 3) / 4; i += THREADS)
+    s_words[i] = words[i];
+  if (tid < 64) s_tab[tid] = (uint16_t)(aa_tab[tid] << 3 | num_tab[tid]);
+  __syncthreads();
+  const uint8_t* base = (const uint8_t*)s_words + shift;
+
+  // each frame's codons w0 .. w0 + cw + 6, decoded once
+  const int n_cod = cw + K - 1;
+  for (int i = tid; i < 6 * n_cod; i += THREADS) {
+    const int f = i / n_cod, kk = i - f * n_cod;
+    const int begin = f < 3 ? f : ((len % 3) - (f - 3) + 3) % 3;
+    const int q = begin + 3 * kk;  // base offset in the chunk
+    uint32_t code = 0;
+    if (w0 + kk < aa_len && base0 + q + 2 < L) {
+      const int b0 = base[q], b1 = base[q + 1], b2 = base[q + 2];
+      if (b0 <= 3 && b1 <= 3 && b2 <= 3) {
+        const int c = f < 3 ? (b0 << 4 | b1 << 2 | b2)
+                            : ((b2 ^ 2) << 4 | (b1 ^ 2) << 2 | (b0 ^ 2));
+        code = VALID | (uint32_t)s_tab[c] << 6 | (uint32_t)c;
       }
     }
-    ok = first == 0 || first == n_smer - 1;
+    s_cod[f][kk] = (uint16_t)code;
   }
-  valid[t] = ok;
-  value[t] = ok ? (int64_t)((aa_part << 24) | dna_part) : 0;
-  dna48[t] = ok ? (int64_t)d48 : 0;
+  __syncthreads();
+
+  // s-mer values in each frame's canonical order: forward s-mers pack
+  // codons kk .. kk+s-1 upward, reverse ones kk+s-1 .. kk downward
+  const int n_sm = cw + K - smer_len;
+  if (syncmer) {
+    for (int i = tid; i < 6 * n_sm; i += THREADS) {
+      const int f = i / n_sm, kk = i - f * n_sm;
+      uint64_t v = 0;
+      for (int j = 0; j < smer_len; ++j) {
+        const int c = f < 3 ? kk + j : kk + smer_len - 1 - j;
+        v = v << 5 | (uint64_t)(s_cod[f][c] >> 9 & 31);
+      }
+      s_smer[f][kk] = v;
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < 6 * cw; i += THREADS) {
+    const int f = i / cw, wl = i - f * cw;
+    const bool reverse = f >= 3;
+    // slot j (most significant first): forward codon w+j, reverse w+7-j
+    uint64_t aa_part = 0, dna_part = 0, d48 = 0;
+    bool ok = true;
+    for (int j = 0; j < K; ++j) {
+      const uint32_t code = s_cod[f][reverse ? wl + K - 1 - j : wl + j];
+      ok = ok && (code & VALID);
+      aa_part = aa_part << 5 | (code >> 9 & 31);
+      dna_part = dna_part << 3 | (code >> 6 & 7);
+      d48 = d48 << 6 | (code & 63);
+    }
+    if (ok && syncmer) {
+      // keep iff the FIRST minimal s-mer sits at offset 0 or 8-s
+      const int n = K - smer_len + 1;
+      uint64_t best = ~0ull;
+      int at = 0;
+      for (int o = 0; o < n; ++o) {
+        const uint64_t v =
+            s_smer[f][reverse ? wl + K - smer_len - o : wl + o];
+        if (v < best) {
+          best = v;
+          at = o;
+        }
+      }
+      ok = at == 0 || at == n - 1;
+    }
+    const int w = w0 + wl;
+    const int begin = f < 3 ? f : ((len % 3) - (f - 3) + 3) % 3;
+    const int64_t t = ((int64_t)b * 6 + f) * W + w;
+    value[t] = ok ? (int64_t)(aa_part << 24 | dna_part) : 0;
+    dna48[t] = ok ? (int64_t)d48 : 0;
+    pos[t] = begin + 3 * w;
+    valid[t] = ok;
+  }
 }
 
 }  // namespace
@@ -97,11 +152,11 @@ extern "C" int mtb_extract_metamers(const uint8_t* codes, const int32_t* lens,
                                     const int32_t* num_tab, int64_t* value,
                                     int32_t* pos, bool* valid, int64_t* dna48,
                                     cudaStream_t stream) {
-  int64_t total = (int64_t)B * 6 * W;
-  int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  extract_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      codes, lens, B, L, W, syncmer, smer_len, aa_tab, num_tab, value, pos,
+  const int chunks = (W + CHUNK - 1) / CHUNK;
+  if (chunks > 65535 || smer_len < 1 || smer_len > K)
+    return (int)cudaErrorInvalidValue;
+  extract_kernel<<<dim3((unsigned)B, (unsigned)chunks), THREADS, 0, stream>>>(
+      codes, lens, L, W, syncmer, smer_len, aa_tab, num_tab, value, pos,
       valid, dna48);
   return (int)cudaGetLastError();
 }

@@ -53,10 +53,19 @@ def max_windows(max_len: int) -> int:
     return max(0, max(0, (max_len - 2) // 3) - K + 1)
 
 
+# device -> (amino acid, codon number) int32 tables of the standard
+# alphabet, built and uploaded once per device
+_TABLES: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
 def _tables(device) -> tuple[torch.Tensor, torch.Tensor]:
-    aa_tab, num_tab = codon_tables(False)
-    return (torch.as_tensor(aa_tab.astype(np.int32), device=device),
+    device = torch.device(device)
+    if device not in _TABLES:
+        aa_tab, num_tab = codon_tables(False)
+        _TABLES[device] = (
+            torch.as_tensor(aa_tab.astype(np.int32), device=device),
             torch.as_tensor(num_tab.astype(np.int32), device=device))
+    return _TABLES[device]
 
 
 def _frame_codons(codes: torch.Tensor, lens: torch.Tensor, A: int):
@@ -158,26 +167,28 @@ def extract_metamers_plain(codes: torch.Tensor, lens: torch.Tensor, *,
 
 def extract_metamers(codes: torch.Tensor, lens: torch.Tensor, *,
                      syncmer: bool = False, smer_len: int = 5) -> Metamers:
-    """Kernel K1 wrapper: CUDA tensors launch ``mtb_extract_metamers``;
-    CPU tensors take the plain version."""
+    """Kernel K1 wrapper: CUDA tensors launch ``mtb_extract_metamers``
+    (a CTA per chunk of a row's windows; the kernel writes every output
+    element); CPU tensors take the plain version."""
     if codes.device.type == "cpu":
         return extract_metamers_plain(codes, lens, syncmer=syncmer,
                                       smer_len=smer_len)
     if codes.dtype != torch.uint8 or lens.dtype != torch.int32:
         raise TypeError("extract_metamers: codes uint8 [B, L], lens int32 [B]")
-    codes = codes.contiguous()
-    lens = lens.contiguous()
     B, L = codes.shape
+    if lens.shape != (B,) or not 1 <= smer_len <= K:
+        raise ValueError("extract_metamers: lens must be [B] and smer_len "
+                         f"in 1..{K}")
     W = max_windows(L)
     dev = codes.device
-    value = torch.zeros((B, 6, W), dtype=torch.int64, device=dev)
-    dna48 = torch.zeros_like(value)
+    value = torch.empty((B, 6, W), dtype=torch.int64, device=dev)
+    dna48 = torch.empty((B, 6, W), dtype=torch.int64, device=dev)
     pos = torch.empty((B, 6, W), dtype=torch.int32, device=dev)
     valid = torch.empty((B, 6, W), dtype=torch.bool, device=dev)
     if B == 0 or W == 0:
         return Metamers(value, pos, valid, dna48)
     aa_tab, num_tab = _tables(dev)
-    build.require_cuda("extract_metamers", codes, lens, aa_tab, num_tab)
+    build.require_cuda("extract_metamers", codes, lens)
     lib = build.get_lib()
     rc = lib.mtb_extract_metamers(
         codes.data_ptr(), lens.data_ptr(), B, L, W, int(bool(syncmer)),

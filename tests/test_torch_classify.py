@@ -177,3 +177,90 @@ def test_port_raises_for_a_db_larger_than_the_card(tmp_path, golden_s0,
     with pytest.raises(NotImplementedError, match="larger than the card"):
         main(["classify", q, db, str(tmp_path / "out"), "x", "--seq-mode",
               "1"])
+
+
+def _deep_world(tmp_path):
+    """tests/test_deep_tier.py::test_cli_classifier_on_deep_world's world:
+    24 species sharing a wobble-diverged 3 kb core (AA groups ~24 deep)
+    with 2 kb unique tails, its DB built by the JAX package's
+    ``build_database``, and 48 reads, half from the cores."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    acgt = np.array(list(b"ACGT"), np.uint8)
+    core = rng.choice(acgt, 3000)
+    n_sp = 24
+    nodes = [(1, 1, "no rank"), (2, 1, "genus")]
+    names = {1: "root", 2: "G"}
+    taxdir = tmp_path / "taxonomy"
+    taxdir.mkdir()
+    fasta_dir = tmp_path / "fasta"
+    fasta_dir.mkdir()
+    paths, acc_rows = [], []
+    for s in range(n_sp):
+        t = 3 + s
+        nodes.append((t, 2, "species")); names[t] = f"S{s}"
+        c = core.copy()
+        w = np.arange(2, 3000, 3)
+        m = w[rng.random(len(w)) < 0.15]
+        c[m] = acgt[(np.searchsorted(acgt, c[m])
+                     + rng.integers(1, 4, len(m))) % 4]
+        uniq = rng.choice(acgt, 2000)
+        seq = np.concatenate([c, uniq])
+        acc = f"DP_{s}.1"
+        p = fasta_dir / f"{acc}.fna"
+        p.write_text(f">{acc}\n{bytes(seq).decode()}\n")
+        paths.append(str(p))
+        acc_rows.append(f"{acc.split('.')[0]}\t{acc}\t{t}\t0\n")
+    (taxdir / "nodes.dmp").write_text(
+        "".join(f"{t}\t|\t{p}\t|\t{r}\t|\n" for t, p, r in nodes))
+    (taxdir / "names.dmp").write_text(
+        "".join(f"{t}\t|\t{n}\t|\t\t|\tscientific name\t|\n"
+                for t, n in names.items()))
+    (taxdir / "merged.dmp").write_text("")
+    (tmp_path / "library.txt").write_text("\n".join(paths) + "\n")
+    (tmp_path / "acc2taxid.map").write_text(
+        "accession\taccession.version\ttaxid\tgi\n" + "".join(acc_rows))
+    db = str(tmp_path / "db")
+    build_database(db, str(tmp_path / "library.txt"),
+                   str(tmp_path / "acc2taxid.map"), str(taxdir),
+                   BuildParams(gene_prediction=0, batch_bases=200_000))
+    reads = []
+    for i in range(48):
+        g = open(paths[i % n_sp]).read().splitlines()[1].encode()
+        st = int(rng.integers(0, 2800)) if i % 2 else int(
+            rng.integers(3100, 4800))
+        reads.append(g[st:st + 150])
+    q = tmp_path / "reads.fna"
+    q.write_text("".join(f">r{i}\n{r.decode()}\n" for i, r in enumerate(reads)))
+    return db, str(q)
+
+
+@pytest.mark.parametrize("below_deepest", [False, True])
+def test_port_equals_jax_deep_tier_classifier(tmp_path, below_deepest):
+    """F2 at the classifier: on a DB whose groups are deep enough for the
+    JAX package's aligned deep tier (which fetches deep groups whole,
+    whatever its cap2), the JAX Classifier and the port write the same
+    classifications and report, at the default --max-cap and at one
+    below the deepest group."""
+    from metabuli_tpu.classify.classifier import Classifier
+    from metabuli_tpu.params import ClassifyParams
+
+    db, q = _deep_world(tmp_path)
+    jax_clf = Classifier(db, ClassifyParams(seq_mode=1, batch_reads=64))
+    assert jax_clf.dev_index.deep_w > 0  # the deep tier is active
+    deepest = jax_clf.index.max_group
+    cap = ["--max-cap", str(deepest - 1)] if below_deepest else []
+    if below_deepest:
+        jax_clf = Classifier(db, ClassifyParams(seq_mode=1, batch_reads=64,
+                                                max_cap=deepest - 1))
+        assert jax_clf.dev_index.deep_w > 0
+    s = jax_clf.classify_file(q, None, str(tmp_path / "jax"), "dp")
+    assert s["classified"] >= 0.9 * 48
+    assert main(["classify", q, db, str(tmp_path / "port"), "dp",
+                 "--seq-mode", "1", "--batch-reads", "64", "--device", "cpu",
+                 *cap]) == 0
+    for kind in ("classifications", "report"):
+        want = (tmp_path / "jax" / f"dp_{kind}.tsv").read_bytes()
+        got = (tmp_path / "port" / f"dp_{kind}.tsv").read_bytes()
+        assert got == want, kind

@@ -69,3 +69,14 @@ def test_extract_short_batch_is_empty():
     mm = tenc.extract_metamers(torch.from_numpy(codes),
                                torch.from_numpy(lens))
     assert mm.value.shape == (1, 6, 0)
+
+
+@pytest.mark.parametrize("syncmer", [0, 1])
+def test_extract_long_row_among_reads(syncmer):
+    """A ~5,000-base row among 150-base reads: the batch's windows span
+    several of K1's 256-window chunks, the short rows' windows past their
+    end stay invalid."""
+    rng = np.random.default_rng(50 + syncmer)
+    seqs = [ref_impl.random_dna(rng, 150, n_prob=0.01) for _ in range(5)]
+    seqs.insert(2, ref_impl.random_dna(rng, 5003, n_prob=0.002))
+    assert _compare(seqs, syncmer=bool(syncmer)) > 4000

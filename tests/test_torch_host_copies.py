@@ -59,3 +59,23 @@ def test_port_sources_have_no_jax_import():
             for p in (ROOT / "metabuli_tpu_torch").rglob("*.py")
             if pat.search(p.read_text())]
     assert hits == []
+
+
+@pytest.mark.parametrize("rel", ["chip_smoke.py",
+                                 "metabuli_tpu_torch/tools/world.py"])
+def test_smoke_script_and_world_import_no_bench_jax_or_reference(rel):
+    """The smoke run needs neither the benchmark script nor JAX: every
+    import in these files, at any depth, names another module."""
+    import ast
+
+    tree = ast.parse((ROOT / rel).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert names
+    bad = [n for n in names
+           if n.split(".")[0] in ("bench", "jax", "metabuli_tpu")]
+    assert bad == [], bad

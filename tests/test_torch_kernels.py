@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from metabuli_tpu_torch.classify import device_chain, device_combine, pipeline
-from metabuli_tpu_torch.classify.device_compact import compact_paths
+from metabuli_tpu_torch.classify.device_compact import FlatPaths, compact_paths
 from metabuli_tpu_torch.classify.pipeline import (_search_groups,
                                                   build_dev_index,
                                                   classify_core,
@@ -18,6 +18,7 @@ from metabuli_tpu_torch.classify.pipeline import (_search_groups,
 from metabuli_tpu_torch.csrc import build
 from metabuli_tpu_torch.ops import encode
 from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
+from test_torch_synthetic import synthetic_paths
 
 pytestmark = pytest.mark.gpu
 
@@ -282,3 +283,65 @@ def test_k3_wide_groups_and_long_blocks_match_plain(max_shift, ties):
     torch.cuda.synchronize()
     _eq(got, want)
     assert int(got.emit.sum()) > 0 and int(got.depth.max()) > 8
+
+
+def _k1_rows(kind, rng):
+    """Rows for K1: short rows (24-26 bases: 0-1 windows; 151) with N and
+    IUPAC bases, or rows around one and two CTA chunks of 256 windows
+    (791 bases give exactly 256 windows, 794 give 257; 1,562 give 513),
+    or a ~5,000-base row among 150-base reads."""
+    iupac = np.frombuffer(b"NRYSWKMBDHVX", np.uint8)
+
+    def row(n, n_rate=0.01):
+        r = rng.choice(ACGT, n)
+        m = rng.random(n) < n_rate
+        r[m] = rng.choice(iupac, int(m.sum()))
+        return bytes(r)
+
+    return {"short": [row(n) for n in (24, 25, 26, 151, 151)],
+            "chunk_edge": [row(n) for n in (791, 792, 793, 794, 150)],
+            "two_chunks": [row(n) for n in (1559, 1560, 1561, 1562, 150)],
+            "long_row": [row(150) for _ in range(6)] + [row(5003)]}[kind]
+
+
+@pytest.mark.parametrize("syncmer,smer_len", [(False, 5), (True, 3),
+                                              (True, 5), (True, 6), (True, 7)])
+@pytest.mark.parametrize("kind", ["short", "chunk_edge", "two_chunks",
+                                  "long_row"])
+def test_k1_row_lengths_and_syncmers_match_plain(kind, syncmer, smer_len):
+    rows = _k1_rows(kind, np.random.default_rng(len(kind)))
+    codes, lens = encode_seqs_padded(rows)
+    codes = torch.from_numpy(codes).to("cuda")
+    lens = torch.from_numpy(lens).to("cuda")
+    kw = dict(syncmer=syncmer, smer_len=smer_len)
+    before = build.launches["extract_metamers"]
+    got = encode.extract_metamers(codes, lens, **kw)
+    assert build.launches["extract_metamers"] == before + 1
+    want = encode.extract_metamers_plain(codes, lens, **kw)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert int(got.valid.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["sizes", "ties", "dense", "accepted"])
+def test_k4_group_sizes_and_overlaps_match_plain(case):
+    """Groups of 1, 31, 32, 33, 65, 70 and 100 paths; ``accepted``:
+    groups with 40 and 260 accepted paths and paths that meet them."""
+    rng = np.random.default_rng(17)
+    sizes = {"sizes": [1, 31, 32, 33, 70, 2, 5, 100, 3, 40],
+             "ties": [1, 31, 32, 33, 70, 2, 5, 100, 3, 40],
+             "dense": [1, 31, 32, 33, 65, 100] * 2,
+             "accepted": [40, 260, 40, 33]}[case]
+    paths, rl = synthetic_paths(
+        rng, sizes, ties=case == "ties", span=150 if case == "dense" else 300,
+        disjoint=(0, 1, 2) if case == "accepted" else ())
+    sp, gstart = device_combine.sort_paths(
+        FlatPaths(*(x.to("cuda") for x in paths)))
+    rl = rl.to("cuda")
+    before = build.launches["combine_paths"]
+    got = device_combine.combine_paths(sp, gstart, rl)
+    assert build.launches["combine_paths"] == before + 1
+    want = device_combine.combine_paths_plain(sp, gstart, rl)
+    torch.cuda.synchronize()
+    _eq([got], [want])
+    assert float(got.max()) < 1.0 and got.numel() == len(sizes)

@@ -28,6 +28,7 @@ from metabuli_tpu_torch.classify.pipeline import MatchColumns
 from test_device_chain import _synthetic_matches
 from test_device_chain import _taxonomy as chain_taxonomy
 from test_device_redundancy import _taxonomy as red_taxonomy
+from test_torch_synthetic import synthetic_paths
 
 T = lambda a: torch.as_tensor(np.ascontiguousarray(a))
 
@@ -251,3 +252,25 @@ def test_tail_where_jax_grid_overflows_equals_python(tmp_path):
         assert np.float32(got[r].score) == np.float32(want.score), r
         n_cls += want.is_classified
     assert n_cls > 0
+
+
+def test_combine_large_groups_equal_jax():
+    """Groups of 1-70 paths that nest and chain (one path trimmed by
+    several accepted ones in turn) and one with 40 accepted paths, with
+    JAX's ``p_max`` at the largest group so that JAX combines every group
+    on the device."""
+    paths, rl = synthetic_paths(np.random.default_rng(23),
+                                [1, 31, 32, 33, 70, 40], disjoint=(5,))
+    a = [x.numpy() for x in paths]
+    p_max = 72
+    assert np.bincount(a[0] * 8 + a[1]).max() <= p_max
+    res = jcomb.combine_paths(*a, np.ones(len(a[0]), bool), rl.numpy(),
+                              n_groups=8, p_max=p_max)
+    assert not np.asarray(res.fallback).any()
+    ok = np.asarray(res.group_valid)
+    sp, gstart = sort_paths(paths)
+    got = combine_paths(sp, gstart, rl)
+    assert np.array_equal(sp.read[gstart[:-1].long()].numpy(),
+                          np.asarray(res.group_read)[ok])
+    assert np.array_equal(_bits(got.numpy()), _bits(np.asarray(res.score)[ok]))
+    assert ok.sum() == 6
