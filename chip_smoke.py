@@ -7,9 +7,13 @@ Phases, one line each; any failure exits non-zero:
   device    the CUDA device, its capability (must be 9.0), and
             nvidia-smi's name and power limit
   build     nvcc builds the kernels, g++ the native host library
-  probes    the device-cost probes P1-P4 (metabuli_tpu_torch.tools.probes,
-            not on the classify path) against their plain versions at the
-            profiling scripts' sizes, with their median ms
+  probes    the device-cost probes P1-P4 (metabuli_tpu_torch.tools.probes
+            in a process of its own; not on the classify path) against
+            their plain versions at the profiling scripts' sizes; per
+            probe and per library call that computes the same function:
+            ms (one call between events), loop_ms (1,000 back-to-back
+            calls, per call) and launch_ms (device time alone, from a
+            torch.profiler trace)
   db        the smoke DB: the adversarial "skew" world of
             metabuli_tpu_torch.tools.world (2 genera x 192 species, a 6 kb
             wobble-diverged core + 94 kb unique each; the same genomes as
@@ -21,7 +25,7 @@ Phases, one line each; any failure exits non-zero:
             (one launch of 64 genomes of 100 kb): integers equal, float32
             bitwise; the median ms of each over 5 runs after a warm-up,
             from CUDA events, for the wrapper (ms) and the plain version;
-            its kernels' device time alone (launch_ms, mean of 5 from a
+            its kernels' device time alone (launch_ms, median of 5 from a
             torch.profiler trace); bound_ms from the batch's own bytes
             (tools/probes.bound); K2's stash size and the warps whose write
             walked again
@@ -35,7 +39,7 @@ Phases, one line each; any failure exits non-zero:
 
 The last three lines are the kernels' JSON record (K1-K4, then the probes
 P1-P4 with their launches in the classify run, 0 since they are off the
-path, and launch_ms = their wrapper ms), nvidia-smi's name and power
+path, and their loop_ms and library_* times), nvidia-smi's name and power
 limit, and the device record.
 """
 
@@ -45,7 +49,6 @@ import contextlib
 import io
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -223,7 +226,7 @@ def kernel_phase(clf, metas, rows, db_chunk) -> dict:
     from metabuli_tpu_torch.classify.device_compact import compact_paths
     from metabuli_tpu_torch.ops import encode
     from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
-    from metabuli_tpu_torch.tools.probes import bound, median_ms
+    from metabuli_tpu_torch.tools.probes import bound, device_ms, median_ms
 
     dev = clf.device
     codes, lens = encode_seqs_padded([r[0] for r in rows])
@@ -233,31 +236,6 @@ def kernel_phase(clf, metas, rows, db_chunk) -> dict:
     offs = torch.zeros(n, dtype=torch.int32, device=dev)
     qids = torch.arange(n, dtype=torch.int32, device=dev)
     out = {}
-
-    def launch_ms(name, fn, runs=5):
-        """Device time of the kernels that ``fn`` launches (their launches
-        alone, not the wrapper's glue), from a torch.profiler trace of
-        ``runs`` calls after a warm-up: per kernel function the mean over
-        its launches in the trace (each call launches each once), and
-        their sum."""
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-        times = {f: [] for f in KERNEL_FUNCTIONS[name]}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            for f in times:
-                if re.search(rf"(^|::){f}\b", e.name):
-                    times[f].append(e.time_range.elapsed_us() / 1e3)
-        if not all(times.values()):
-            fail("kernels", f"the trace shows no launch of {times}")
-        parts = [sum(t) / len(t) for t in times.values()]
-        return sum(parts), parts
 
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
@@ -272,7 +250,8 @@ def kernel_phase(clf, metas, rows, db_chunk) -> dict:
                           else r)
         err = max_abs_err(same(got), same(want))
         b_ms, b_by = bound(cost(got))
-        l_ms, parts = launch_ms(name, fn_k)
+        l_ms, parts = device_ms(fn_k, KERNEL_FUNCTIONS[name],
+                                at_least=b_ms)
         rec = {"max_abs_err": err, "ms": median_ms(fn_k), "launch_ms": l_ms,
                "plain_ms": median_ms(fn_p), "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": None}
@@ -284,7 +263,8 @@ def kernel_phase(clf, metas, rows, db_chunk) -> dict:
                                        {"shape": shape}), equal=err == 0,
             **{k: round(rec[k], 4)
                for k in ("ms", "launch_ms", "plain_ms", "bound_ms")},
-            bound_by=b_by, launch_parts_ms=[round(p, 4) for p in parts])
+            bound_by=b_by,
+            launch_parts_ms=[round(p, 4) for p in parts.values()])
         if err != 0:
             fail("kernels", f"{name} differs from its plain version ({err})")
         return got
@@ -384,22 +364,27 @@ def main() -> int:
     say("build", nvcc_s=round(t1 - t0, 3),
         gxx_s=round(time.perf_counter() - t1, 3))
 
-    # ---- probes (not on the classify path)
-    from metabuli_tpu_torch.tools import probes
-
-    probe_res = probes.run(dev)
+    # ---- probes (not on the classify path), in a process of their own:
+    # with their torch.profiler traces taken in this process, the first
+    # trace of each kernel in the kernels phase held none or only some of
+    # its launches
+    pr = subprocess.run([sys.executable, "-m",
+                         "metabuli_tpu_torch.tools.probes"], cwd=ROOT,
+                        capture_output=True, text=True, timeout=900)
+    sys.stderr.write(pr.stderr[-4000:])
+    try:
+        probe_res = json.loads(pr.stdout.strip().splitlines()[-1])["probes"]
+    except (IndexError, ValueError, KeyError):
+        fail("probes", f"the runner exited {pr.returncode}")
     for name, r in probe_res.items():
         say("probes", kernel=name, replaces=r["replaces"],
-            equal=r["max_abs_err"] == 0, ms=round(r["ms"], 4),
-            plain_ms=round(r["plain_ms"], 4),
-            bound_ms=round(r["bound_ms"], 4), bound_by=r["bound_by"],
-            library_ms=(None if r["library_ms"] is None
-                        else round(r["library_ms"], 4)),
-            **{k: round(r[k], 3) for k in ("ns_per_query", "gb_per_s")
-               if k in r})
+            equal=r["max_abs_err"] == 0, bound_by=r["bound_by"],
+            **{k: None if v is None else round(v, 4) for k, v in r.items()
+               if k.endswith("ms") or k.startswith(("ns_", "gb_"))})
         if r["max_abs_err"] != 0:
             fail("probes", f"{name} differs from its plain version")
-    torch.cuda.empty_cache()
+    if pr.returncode != 0:
+        fail("probes", f"the runner exited {pr.returncode}")
 
     from metabuli_tpu_torch.tools import world
 
@@ -502,15 +487,16 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    probe_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                  "library_ms")
+    probe_keys = ("max_abs_err", "ms", "loop_ms", "launch_ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms", "library_loop_ms",
+                  "library_launch_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], **timings[name]}
         for name, src, rep in KERNELS] + [
         {"name": name, "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": build.launches[name],
-         "launch_ms": r["ms"], **{k: r[k] for k in probe_keys}}
+         **{k: r[k] for k in probe_keys}}
         for name, r in probe_res.items()]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,12 @@ with the reference package's.
 
 Each kernel wrapper counts its launches in ``launches`` (a plain dict of
 ints): a run can then show that it went through the kernels.
+
+The launch path every wrapper shares is kept cheap, because a small
+kernel's call costs what the host spends on it: ``get_lib`` takes its lock
+only until the library is loaded, ``stream`` reads PyTorch's current raw
+stream handle without building a ``torch.cuda.Stream``, and
+``require_cuda`` checks device, contiguity and dtype in one pass.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 CSRC = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
@@ -123,11 +131,16 @@ def build() -> str:
 
 
 def get_lib():
-    """The loaded kernel library (built at first use; raises on failure)."""
+    """The loaded kernel library (built at first use; raises on failure).
+    The lock guards only the first load."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build())
+            # PyDLL: the launches hold the interpreter lock, as PyTorch's
+            # own do, instead of dropping and taking it again on each call
+            lib = ctypes.PyDLL(build())
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -137,9 +150,14 @@ def get_lib():
 
 
 def stream(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device`` (a CUDA ``torch.device`` or
+    a device index) as a raw ``cudaStream_t``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building the Stream object."""
+    if not isinstance(device, int):
+        device = (torch.cuda.current_device() if device.index is None
+                  else device.index)
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def check(rc: int, name: str) -> None:
@@ -149,12 +167,18 @@ def check(rc: int, name: str) -> None:
                            f"cudaError {rc}")
 
 
-def require_cuda(name: str, *tensors) -> None:
-    """Wrapper-side argument check: every tensor contiguous and on the
-    same CUDA device."""
+def require_cuda(name: str, *tensors, dtype=None) -> int:
+    """Wrapper-side argument check, one pass over ``tensors``: every
+    tensor contiguous, on the same CUDA device and, where ``dtype`` is
+    given, of that dtype. Returns the device's index."""
     # get_device() is -1 on the CPU and the card's index on CUDA
-    devices = {t.get_device() for t in tensors}
-    if len(devices) != 1 or -1 in devices:
-        raise ValueError(f"{name}: tensors must share one CUDA device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: tensors must be contiguous")
+    dev = tensors[0].get_device()
+    for t in tensors:
+        if t.get_device() != dev or dev < 0:
+            raise ValueError(f"{name}: tensors must share one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: {dtype} tensors expected, got "
+                            f"{t.dtype}")
+    return dev

@@ -6,14 +6,26 @@ Pallas kernels in ``tools_profiling/``.
 Not on the classify path: each probe measures one memory pattern the
 search could be built on. On a CUDA device the command builds the kernels,
 checks each against its plain PyTorch version at the reference scripts'
-sizes, and prints one JSON line of results (median ms of 5 runs after a
-warm-up, from CUDA events). Each wrapper takes its plain version for CPU
-tensors only; for CUDA tensors it launches the kernel or raises.
+sizes, and prints one JSON line of records. For each probe, and for the
+one PyTorch call that computes the same function where there is one
+(``library_*``):
+
+    ms         one call between two CUDA events, median of 5 after a
+               warm-up: the host's enqueue of the call and its device time
+    loop_ms    1,000 back-to-back calls between one pair of events, over
+               1,000, median of 5: the steady cost of a call
+    launch_ms  the device time of the kernel alone, from a torch.profiler
+               trace (for the library call, of every kernel it launches)
+
+beside ``plain_ms`` (the plain version's ``ms``) and ``bound_ms``. Each
+wrapper takes its plain version for CPU tensors only; for CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
 
 import torch
@@ -34,6 +46,13 @@ PROBES = {
     "stream_sum": ("metabuli_tpu_torch/csrc/probes.cu",
                    "tools_profiling/profile_tier_slices.py:129"),
 }
+
+
+# probe -> its CUDA function, as the profiler names it
+FUNCTIONS = {"gather_tile_sum": "gather_tile_sum_kernel",
+             "merge_join_sum": "merge_join_kernel",
+             "smoke_double": "double_kernel",
+             "stream_sum": "stream_sum_kernel"}
 
 
 def _check_i32(name: str, *tensors) -> None:
@@ -119,25 +138,32 @@ def smoke_double_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def smoke_double(x: torch.Tensor) -> torch.Tensor:
-    """P3 (``psmoke``): x * 2 (int32, wrapping)."""
-    _check_i32("smoke_double", x)
-    if x.device.type == "cpu":
+    """P3 (``psmoke``): x * 2 (int32, wrapping). A 16-byte vector a
+    thread; the n % 4 tail and an unaligned view take the kernel's scalar
+    path."""
+    if x.is_cpu:
+        _check_i32("smoke_double", x)
         return smoke_double_plain(x)
-    build.require_cuda("smoke_double", x)
+    dev = build.require_cuda("smoke_double", x, dtype=torch.int32)
     out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    rc = build.get_lib().mtb_probe_double(x.data_ptr(), x.numel(),
-                                          out.data_ptr(), build.stream(x.device))
-    build.check(rc, "smoke_double")
-    build.launches["smoke_double"] += 1
+    n = x.numel()
+    if n:
+        rc = build.get_lib().mtb_probe_double(x.data_ptr(), n,
+                                              out.data_ptr(),
+                                              build.stream(dev))
+        build.check(rc, "smoke_double")
+        build.launches["smoke_double"] += 1
     return out
 
 
 # ------------------------------------------------------------------ P4
-def _words(table: torch.Tensor) -> torch.Tensor:
+def _check_table(table: torch.Tensor) -> None:
     if table.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"stream_sum: int32 or int64 table, got {table.dtype}")
+
+
+def _words(table: torch.Tensor) -> torch.Tensor:
+    _check_table(table)
     return table.reshape(-1).view(torch.int32)
 
 
@@ -149,17 +175,21 @@ def stream_sum_plain(table: torch.Tensor) -> torch.Tensor:
 
 
 def stream_sum(table: torch.Tensor) -> torch.Tensor:
-    """P4 (``stream_sum``): the table streamed once through the SMs with
-    16-byte loads. The table must start 16-byte aligned."""
-    w = _words(table)
-    if table.device.type == "cpu":
+    """P4 (``stream_sum``): the table streamed once by one CTA per SM,
+    TMA bulk copies into a ring in shared memory, the CTAs' sums met
+    through a last-CTA ticket kept on the card. The table must start
+    16-byte aligned, and two calls must not overlap on two streams (the
+    ticket is one per device)."""
+    if table.is_cpu:
         return stream_sum_plain(table)
-    build.require_cuda("stream_sum", w)
-    if w.data_ptr() % 16:
+    _check_table(table)
+    dev = build.require_cuda("stream_sum", table)
+    if table.data_ptr() % 16:
         raise ValueError("stream_sum: the table must be 16-byte aligned")
-    out = torch.zeros((1, 1), dtype=torch.int32, device=w.device)
+    out = torch.empty((1, 1), dtype=torch.int32, device=dev)
     rc = build.get_lib().mtb_probe_stream_sum(
-        w.data_ptr(), w.numel(), out.data_ptr(), build.stream(w.device))
+        table.data_ptr(), table.numel() * table.element_size() // 4,
+        out.data_ptr(), build.stream(dev))
     build.check(rc, "stream_sum")
     build.launches["stream_sum"] += 1
     return out
@@ -167,7 +197,9 @@ def stream_sum(table: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------- runner
 def median_ms(fn, runs: int = 5) -> float:
-    """Median CUDA-event time of ``fn`` over ``runs`` after one warm-up."""
+    """One call between two CUDA events, median over ``runs`` after one
+    warm-up. With the card idle before the call, this holds the host's
+    enqueue of the call as well as its device time."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -180,6 +212,85 @@ def median_ms(fn, runs: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(sorted(times)[len(times) // 2])
+
+
+def loop_ms(fn, calls: int = 1000, runs: int = 5) -> float:
+    """``calls`` back-to-back calls between one pair of CUDA events, over
+    ``calls``, median over ``runs`` after a warm-up: the steady cost of a
+    call, the larger of its device time and its host time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return float(sorted(times)[len(times) // 2])
+
+
+def _trace(fn, functions, runs: int):
+    """One torch.profiler trace of ``runs`` calls: {function: [ms of each
+    launch]} and the names of every kernel the trace holds."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    times = {f: [] for f in functions or ()}
+    seen = set()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.name.startswith(("Memset", "Memcpy")):
+            continue
+        seen.add(e.name)
+        if functions is None:
+            match = e.name
+        else:
+            match = next((f for f in functions
+                          if re.search(rf"(^|::){f}\b", e.name)), None)
+            if match is None:
+                continue
+        times.setdefault(match, []).append(e.time_range.elapsed_us() / 1e3)
+    return times, seen
+
+
+def device_ms(fn, functions=None, runs: int = 5, at_least: float = 0.0,
+              tries: int = 5):
+    """Device time of the kernels ``fn`` launches (their launches alone,
+    not the host's glue), from a torch.profiler trace of ``runs`` calls
+    after a warm-up. ``functions``: the CUDA function names to count
+    (each call launches each once); None counts every kernel in the trace
+    (memsets and copies excluded), for a library call. Per function, the
+    median of its launches times its launches a call. Returns (ms a call,
+    {function: ms a call}).
+
+    A trace can come back holding none or only some of the launches, or
+    kernel times below what the card could do (under ``at_least``, the
+    call's bound_ms), while CUDA events time the same calls normally (seen
+    on an H100); a trace whose count of launches of a function is not a
+    whole multiple of ``runs``, or whose time is under ``at_least``, is
+    taken again, up to ``tries`` traces in all, and then this raises."""
+    fn()
+    torch.cuda.synchronize()
+    for i in range(tries):
+        times, seen = _trace(fn, functions, runs)
+        if times and all(t and len(t) % runs == 0 for t in times.values()):
+            # per function: its median launch times its launches a call
+            parts = {f: sorted(t)[len(t) // 2] * len(t) / runs
+                     for f, t in times.items()}
+            if sum(parts.values()) >= at_least:
+                return sum(parts.values()), parts
+        print(f"device_ms: trace {i + 1} of {tries} for {functions} held "
+              f"{ {f: len(t) for f, t in times.items()} } launches of "
+              f"{runs} calls, or under {at_least} ms", file=sys.stderr)
+    raise RuntimeError(f"{tries} traces without every launch of "
+                       f"{functions} above {at_least} ms; the last held "
+                       f"{sorted(seen)[:8]}")
 
 
 # the H100 SXM's published HBM3 rate at 700 W, bytes/s
@@ -228,25 +339,41 @@ def run(device, table_bits: int = 23, n_queries: int = 2_097_152,
                        lambda: stream_sum_plain(big),
                        lambda: words.sum(dtype=torch.int32), big.nbytes),
     }
+    def error(fk, want):
+        got = fk()
+        torch.cuda.synchronize()
+        return (float("inf") if got.shape != want.shape else
+                float((got.long() - want.long()).abs().max()))
+
     out = {}
     for name, (fk, fp, fl, n_bytes) in cases.items():
-        got, want = fk(), fp()
-        torch.cuda.synchronize()
-        err = (float("inf") if got.shape != want.shape else
-               float((got.long() - want.long()).abs().max()))
+        want = fp()
+        err = error(fk, want)
         src, rep = PROBES[name]
         b_ms, b_by = bound(n_bytes)
         out[name] = {"route": "cuda", "source": src, "replaces": rep,
                      "max_abs_err": err, "ms": median_ms(fk),
+                     "loop_ms": loop_ms(fk),
+                     "launch_ms": device_ms(fk, [FUNCTIONS[name]],
+                                            at_least=b_ms)[0],
                      "plain_ms": median_ms(fp), "bound_ms": b_ms,
-                     "bound_by": b_by,
-                     "library_ms": median_ms(fl) if fl else None}
+                     "bound_by": b_by, "library_ms": None,
+                     "library_loop_ms": None, "library_launch_ms": None}
+        if fl is not None:
+            out[name].update(library_ms=median_ms(fl),
+                             library_loop_ms=loop_ms(fl),
+                             library_launch_ms=device_ms(
+                                 fl, at_least=b_ms)[0])
+        # and once more after the thousands of timed calls
+        out[name]["max_abs_err"] = max(err, error(fk, want))
     total = int(gather_tile_sum(table, slots).sum(dtype=torch.int64))
     if total != int(merge_join_sum(table, slots).sum()):
         out["merge_join_sum"]["max_abs_err"] = float("inf")
     out["gather_tile_sum"]["ns_per_query"] = (
         out["gather_tile_sum"]["ms"] * 1e6 / n_queries)
-    out["stream_sum"]["gb_per_s"] = big.numel() * 8 / out["stream_sum"]["ms"] / 1e6
+    for k in ("ms", "launch_ms", "library_ms", "library_launch_ms"):
+        out["stream_sum"]["gb_per_s_" + k] = (
+            big.nbytes / out["stream_sum"][k] / 1e6)
     return out
 
 

@@ -162,6 +162,99 @@ def test_probe_kernels_match_plain(name):
     _eq([got], [want])
 
 
+# P3's vector path takes 4 words a thread, 256 threads a CTA; P4's CTAs
+# take the table in chunks of 8,192 words (32 KiB, one stage of the ring)
+P4_STEP = 4 * 2048
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 1023, 1024, 1025, 1 << 20,
+                               "view"])
+def test_p3_smoke_double_sizes_match_plain(n):
+    """Word counts around the 16-byte vectors and one CTA, 1 M words, and
+    a view one word into its buffer (not 16-byte aligned: the scalar
+    path)."""
+    from metabuli_tpu_torch.tools import probes
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randint(-(1 << 31), (1 << 31) - 1,
+                      (1025 if n == "view" else n,), generator=g,
+                      dtype=torch.int32, device="cuda")
+    if n == "view":
+        x = x.view(-1)[1:]
+        assert x.data_ptr() % 16
+    before = build.launches["smoke_double"]
+    got = probes.smoke_double(x)
+    assert build.launches["smoke_double"] == before + (x.numel() > 0)
+    want = probes.smoke_double_plain(x)
+    torch.cuda.synchronize()
+    _eq([got], [want])
+    with pytest.raises(TypeError):
+        probes.smoke_double(x.long())
+
+
+@pytest.mark.parametrize("words", [0, 1, 3, 4, 5, P4_STEP - 1, P4_STEP + 1,
+                                   "waves", "rows_2_26"])
+def test_p4_stream_sum_sizes_match_plain(words):
+    """0-5 words (none, tail words only, or one vector and a tail), one chunk
+    +- 1 (a short last chunk, or one CTA and a second), 24 chunks a CTA
+    plus a tail (each CTA's ring wrapping round its 4 stages several
+    times), and a 2^26-row int64 table."""
+    from metabuli_tpu_torch.tools import probes
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    if words == "rows_2_26":
+        tab = torch.randint(-(1 << 63), (1 << 63) - 1, (1 << 26,),
+                            generator=g, dtype=torch.int64, device="cuda")
+    else:
+        n = (24 * torch.cuda.get_device_properties(0).multi_processor_count
+             * P4_STEP + 5) if words == "waves" else words
+        tab = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=g,
+                            dtype=torch.int32, device="cuda")
+    before = build.launches["stream_sum"]
+    got = probes.stream_sum(tab)
+    assert build.launches["stream_sum"] == before + 1
+    want = probes.stream_sum_plain(tab)
+    torch.cuda.synchronize()
+    _eq([got], [want])
+
+
+def test_p4_stream_sum_twice_and_on_a_side_stream():
+    """Two calls in a row each find their ticket at 0; a call inside
+    ``torch.cuda.stream(s)`` runs on s and agrees."""
+    from metabuli_tpu_torch.tools import probes
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    a, b = (torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=g,
+                          dtype=torch.int32, device="cuda")
+            for n in (P4_STEP * 300 + 3, P4_STEP * 7 + 2))
+    got = [probes.stream_sum(a), probes.stream_sum(b), probes.stream_sum(a)]
+    want = [probes.stream_sum_plain(t) for t in (a, b, a)]
+    torch.cuda.synchronize()
+    _eq(got, want)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        on_s = probes.stream_sum(b)
+    torch.cuda.current_stream().wait_stream(s)
+    _eq([on_s], [want[1]])
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        probes.stream_sum(a[1:])
+
+
+def test_raw_stream_is_the_current_stream():
+    """``build.stream`` reads PyTorch's current stream through a private
+    call: it must equal ``current_stream(dev).cuda_stream`` on the
+    default stream and inside ``torch.cuda.stream(s)``."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert build.stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+    assert build.stream(dev.index) == build.stream(dev)
+    s = torch.cuda.Stream(dev)
+    with torch.cuda.stream(s):
+        assert build.stream(dev) == s.cuda_stream
+        assert build.stream(torch.device("cuda")) == s.cuda_stream
+    assert build.stream(dev) != s.cuda_stream
+
+
 def _window_index(sizes, rng):
     """A table whose groups (one amino-acid key each) hold ``sizes`` rows,
     among 4,000 one-row groups; returns (index, keys of the sized groups,

@@ -62,6 +62,35 @@ def test_p3_smoke_double_matches_jax():
                                   np.asarray(jax.jit(lambda v: v * 2)(x)))
 
 
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 1023, 1025, "view"])
+def test_p3_smoke_double_odd_and_empty_match_jax(n):
+    """Word counts around the kernel's 16-byte vectors, none, and a view
+    that starts one word into its buffer."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(-(1 << 31), (1 << 31) - 1, size=1025 if n == "view"
+                     else n, dtype=np.int32)
+    t = torch.from_numpy(x)
+    if n == "view":
+        t, x = t[1:], x[1:]
+    got = probes.smoke_double(t)
+    assert got.shape == t.shape and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax.jit(lambda v: v * 2)(x)))
+
+
+@pytest.mark.parametrize("words", [0, 1, 3, 5, 8191, 8193])
+def test_p4_stream_sum_odd_and_empty_int32_match_jax(words):
+    """int32 tables of word counts that leave 1-3 tail words past the
+    16-byte vectors, around one 8,192-word chunk of the kernel's ring, and
+    none."""
+    rng = np.random.default_rng(words)
+    tab = rng.integers(-(1 << 31), (1 << 31) - 1, size=words, dtype=np.int32)
+    got = probes.stream_sum(torch.from_numpy(tab))
+    assert got.shape == (1, 1) and got.dtype == torch.int32
+    want = jax.jit(lambda t: jnp.sum(t, dtype=jnp.int32))(tab)
+    assert int(got[0, 0]) == int(want)
+
+
 @pytest.mark.parametrize("rows", [1, 1 << 12, (1 << 12) + 3])
 def test_p4_stream_sum_matches_jax(rows):
     rng = np.random.default_rng(rows)
@@ -85,3 +114,36 @@ def test_probes_reject_partial_tiles_and_wrong_dtypes():
                               torch.from_numpy(slots))
     with pytest.raises(TypeError):
         probes.smoke_double(torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        probes.stream_sum(torch.zeros(4, dtype=torch.int16))
+
+
+def test_launch_helpers_refuse_cpu_tensors_and_runners_need_a_card():
+    """The shared launch path's check raises for CPU tensors; the launch
+    cost and probe runners exit 1 without a card (the tests run on the
+    CPU)."""
+    from metabuli_tpu_torch.csrc import build
+    from metabuli_tpu_torch.tools import launch_cost
+
+    with pytest.raises(ValueError):
+        build.require_cuda("x", torch.zeros(4, dtype=torch.int32),
+                           dtype=torch.int32)
+    if not torch.cuda.is_available():
+        assert launch_cost.main() == 1
+        assert probes.main() == 1
+
+
+def test_device_ms_traces_again_when_a_trace_lost_launches(monkeypatch):
+    """A trace holding only some launches of 5 calls, or none, or times
+    under the call's bound is taken again; after 5 such traces device_ms
+    raises. The traces are stand-ins: the profiler's CUDA activity needs a
+    card."""
+    traces = iter([({"k": [1.0, 1.0]}, {"k"}), ({"k": []}, set()),
+                   ({"k": [0.5] * 5}, {"k"})]
+                  + [({"k": [0.01] * 5}, {"k"})] * 5)
+    monkeypatch.setattr(probes, "_trace", lambda fn, f, runs: next(traces))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert probes.device_ms(lambda: None, ["k"], at_least=0.1) == (
+        0.5, {"k": 0.5})
+    with pytest.raises(RuntimeError):
+        probes.device_ms(lambda: None, ["k"], at_least=0.1)
