@@ -376,11 +376,25 @@ def main() -> int:
         probe_res = json.loads(pr.stdout.strip().splitlines()[-1])["probes"]
     except (IndexError, ValueError, KeyError):
         fail("probes", f"the runner exited {pr.returncode}")
+
+    def times(r):
+        """A record's times, and why a launch_ms is None where one is."""
+        return {k: None if v is None else round(v, 4) for k, v in r.items()
+                if k.endswith("ms") and not isinstance(v, dict)
+                or k.startswith(("ns_", "gb_"))} | (
+            {"launch_lost": r["launch_lost"]} if "launch_lost" in r else {})
+
     for name, r in probe_res.items():
         say("probes", kernel=name, replaces=r["replaces"],
-            equal=r["max_abs_err"] == 0, bound_by=r["bound_by"],
-            **{k: None if v is None else round(v, 4) for k, v in r.items()
-               if k.endswith("ms") or k.startswith(("ns_", "gb_"))})
+            equal=r["max_abs_err"] == 0, bound_by=r["bound_by"], l2=r["l2"],
+            **times(r), launch_parts_ms={
+                k: round(v, 4) for k, v in r["launch_parts_ms"].items()})
+        # P1 and P2: on a DB-sized table; P2 with every query in one tile
+        for shape in ("at_db", "one_tile"):
+            if shape in r:
+                say("probes", kernel=name, shape=shape,
+                    equal=r[shape]["max_abs_err"] == 0, l2=r[shape]["l2"],
+                    **times(r[shape]))
         if r["max_abs_err"] != 0:
             fail("probes", f"{name} differs from its plain version")
     if pr.returncode != 0:
@@ -487,9 +501,9 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    probe_keys = ("max_abs_err", "ms", "loop_ms", "launch_ms", "plain_ms",
-                  "bound_ms", "bound_by", "library_ms", "library_loop_ms",
-                  "library_launch_ms")
+    probe_keys = ("max_abs_err", "l2", "ms", "loop_ms", "launch_ms",
+                  "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "library_loop_ms", "library_launch_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], **timings[name]}

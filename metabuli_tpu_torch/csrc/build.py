@@ -74,14 +74,16 @@ _SIGNATURES = {
     # read_lens, n_reads, accepted, out_score, stream
     "mtb_combine_paths": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _P, _P, _P],
-    # table, n_table, slots, n_tiles, tile_q, out, stream
-    "mtb_probe_gather_sum": [_P, _L, _P, _L, _I, _P, _P],
-    # table, sorted_slots, bounds, n_tiles, tile_t, out, stream
-    "mtb_probe_merge_join": [_P, _P, _P, _L, _I, _P, _P],
+    # table, n_table, slots, n_tiles, out, stream
+    "mtb_probe_gather_sum": [_P, _L, _P, _L, _P, _P],
+    # table, n_table, slots, n, counts, cursor, extra, part, out, stream
+    "mtb_probe_merge_join_sum": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _P],
     # x, n, out, stream
     "mtb_probe_double": [_P, _L, _P, _P],
     # words, n, out, stream
     "mtb_probe_stream_sum": [_P, _L, _P, _P],
+    # buf (16-byte aligned), n_vec, sink, stream
+    "mtb_l2_evict": [_P, _L, _P, _P],
 }
 
 

@@ -162,6 +162,87 @@ def test_probe_kernels_match_plain(name):
     _eq([got], [want])
 
 
+def _lookup_case(case, g):
+    """(table, slots) on the card for P1 and P2: a 2^16-slot table and
+    16 tiles of queries in a named distribution (as in
+    test_torch_probes.py), or the reference size (2^23 slots, 2,097,152
+    queries); ``wide_<distribution>``: 2,097,152 queries on 2^25 + 2^11
+    slots (128 MiB), one table tile more than P2's partition counts in
+    shared memory (LOCAL_TILES in csrc/probes.cu), so that its count and
+    scatter take their global-atomic branch."""
+    from metabuli_tpu_torch.tools import probes
+
+    T = probes.TILE_T
+    wide = case.startswith("wide_")
+    case = case.removeprefix("wide_")
+    n_slots, n = ((1 << 23, 2_097_152) if case == "reference" else
+                  ((1 << 25) + T, 2_097_152) if wide else
+                  (1 << 16, 16 * 1024))
+    table = torch.randint(0, 1 << 31, (n_slots,), generator=g,
+                          dtype=torch.int32, device="cuda")
+    r = lambda lo, hi, m=n: torch.randint(lo, hi, (m,), generator=g,
+                                         dtype=torch.int32, device="cuda")
+    slots = {
+        "reference": lambda: r(0, n_slots),
+        "uniform": lambda: r(0, n_slots),
+        "one_tile": lambda: r(3 * T, 4 * T),
+        "first_last": lambda: r(0, 2) * (table.numel() - 1),
+        "ascending": lambda: torch.sort(r(0, n_slots)).values,
+        "gap_tile": lambda: r(0, T) + 2 * T * r(0, 2),
+        "n_plus_3": lambda: r(0, n_slots, n + 3),
+        "view": lambda: r(0, n_slots, n + 1)[1:],
+    }[case]()
+    return table, slots
+
+
+@pytest.mark.parametrize("name,case", [
+    (name, case) for name in ("gather_tile_sum", "merge_join_sum")
+    for case in ("reference", "one_tile", "first_last", "ascending",
+                 "gap_tile", "view")] + [("merge_join_sum", "n_plus_3")]
+    + [("merge_join_sum", "wide_" + case)
+       for case in ("one_tile", "first_last", "uniform")])
+def test_p1_p2_inputs_match_plain(name, case):
+    """P1 and P2 on skewed slot distributions, a ``slots`` view one word
+    into its buffer (not 16-byte aligned), a query count 3 past whole
+    tiles (P2), the reference size, and P2 past the tiles its partition
+    counts in shared memory (``wide_*``); zero tolerance."""
+    from metabuli_tpu_torch.tools import probes
+
+    table, slots = _lookup_case(case, torch.Generator(
+        device="cuda").manual_seed(6))
+    if case == "view":
+        assert slots.data_ptr() % 16
+    before = build.launches[name]
+    got = getattr(probes, name)(table, slots)
+    assert build.launches[name] == before + 1
+    want = getattr(probes, name + "_plain")(table, slots)
+    torch.cuda.synchronize()
+    _eq([got], [want])
+
+
+def test_p1_p2_twice_with_other_inputs_and_sizes():
+    """Calls in a row on other inputs and other sizes (P2's counts kept
+    on the card must be zero again after each call), an unaligned table
+    view for P2 (its word-by-word tile copy), and P1 twice on other
+    inputs, against the plain version."""
+    from metabuli_tpu_torch.tools import probes
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    inputs = [_lookup_case(c, g) for c in ("one_tile", "ascending",
+                                           "n_plus_3", "one_tile")]
+    buf = torch.randint(0, 1 << 31, ((1 << 16) + 1,), generator=g,
+                        dtype=torch.int32, device="cuda")
+    inputs.append((buf[1:], inputs[1][1]))
+    assert inputs[-1][0].data_ptr() % 16
+    for table, slots in inputs:
+        got = probes.merge_join_sum(table, slots)
+        _eq([got], [probes.merge_join_sum_plain(table, slots)])
+    for table, slots in inputs[:2]:
+        got = probes.gather_tile_sum(table, slots)
+        _eq([got], [probes.gather_tile_sum_plain(table, slots)])
+    torch.cuda.synchronize()
+
+
 # P3's vector path takes 4 words a thread, 256 threads a CTA; P4's CTAs
 # take the table in chunks of 8,192 words (32 KiB, one stage of the ring)
 P4_STEP = 4 * 2048

@@ -20,15 +20,41 @@ def _table_slots(seed, table_bits=14, n=8 * probes.TILE_Q):
     return table, slots
 
 
+def _case(case, n=8 * probes.TILE_Q, table_bits=14):
+    """(table, slots) of a named slot distribution, from a numpy seed: an
+    int is a uniform seed; ``one_tile``: every query in table tile 3;
+    ``first_last``: only the first and the last slot; ``ascending``:
+    uniform slots sorted; ``gap_tile``: tiles 0 and 2 only, tile 1 (and
+    the rest) empty; ``n_plus_3``: uniform, 3 queries past whole tiles of
+    queries (P2 only: P1 takes whole tiles)."""
+    if isinstance(case, int):
+        return _table_slots(case, table_bits, n)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    table = rng.integers(0, 1 << 31, size=1 << table_bits, dtype=np.int32)
+    T = probes.TILE_T
+    slots = {
+        "one_tile": lambda: rng.integers(3 * T, 4 * T, size=n),
+        "first_last": lambda: rng.choice([0, table.size - 1], size=n),
+        "ascending": lambda: np.sort(rng.integers(0, table.size, size=n)),
+        "gap_tile": lambda: rng.integers(0, T, size=n)
+        + 2 * T * rng.integers(0, 2, size=n),
+        "n_plus_3": lambda: rng.integers(0, table.size, size=n + 3),
+    }[case]()
+    return table, slots.astype(np.int32)
+
+
+CASES = [0, 1, "one_tile", "first_last", "ascending", "gap_tile"]
+
+
 @jax.jit
 def _xla_gather_sum(t, s):
     # the prototype's baseline (pallas_probe_prototype.py:64-65)
     return jnp.sum((t[s] & 0xFFFF).astype(jnp.int64))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("seed", CASES)
 def test_p1_gather_tile_sum_matches_jax(seed):
-    table, slots = _table_slots(seed)
+    table, slots = _case(seed)
     got = probes.gather_tile_sum(torch.from_numpy(table),
                                  torch.from_numpy(slots))
     assert got.shape == (slots.size // probes.TILE_Q, 1)
@@ -39,9 +65,9 @@ def test_p1_gather_tile_sum_matches_jax(seed):
     assert int(got.sum(dtype=torch.int64)) == int(_xla_gather_sum(table, slots))
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("seed", CASES + ["n_plus_3"])
 def test_p2_merge_join_sum_matches_jax(seed):
-    table, slots = _table_slots(seed)
+    table, slots = _case(seed)
     got = probes.merge_join_sum(torch.from_numpy(table),
                                 torch.from_numpy(slots))
     n_tiles = table.size // probes.TILE_T
@@ -147,3 +173,82 @@ def test_device_ms_traces_again_when_a_trace_lost_launches(monkeypatch):
         0.5, {"k": 0.5})
     with pytest.raises(RuntimeError):
         probes.device_ms(lambda: None, ["k"], at_least=0.1)
+
+
+def test_device_ms_takes_whole_traces_only_and_measure_records_lost(
+        monkeypatch):
+    """Every function's launches in a trace must be a whole multiple of
+    the calls: a trace that lost one launch of 5 is taken again. When all
+    5 traces lost launches, device_ms raises LostLaunches, and a probe's
+    record holds launch_ms None and says why (launch_lost). Stand-in
+    traces and timers: they need a card."""
+    lost = ({"k": [0.4, 0.5, 0.6, 0.5]}, {"k"})
+    traces = iter([lost, ({"k": [0.5] * 5}, {"k"}),
+                   ({"lib": [0.2] * 4}, {"lib"}),
+                   ({"lib": [0.2] * 10}, {"lib"})] + [lost] * 5)
+    monkeypatch.setattr(probes, "_trace", lambda fn, f, runs: next(traces))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert probes.device_ms(lambda: None, ["k"]) == (0.5, {"k": 0.5})
+    assert probes.device_ms(lambda: None) == (0.4, {"lib": 0.4})
+    monkeypatch.setitem(probes.FUNCTIONS, "k", ["k"])
+    for timer in ("median_ms", "loop_ms"):
+        monkeypatch.setattr(probes, timer, lambda fn, **kw: 1.0)
+    one = torch.ones((1, 1), dtype=torch.int32)
+    rec = probes.measure("k", lambda: one, lambda: one, 4)
+    assert rec["launch_ms"] is None and rec["launch_parts_ms"] == {}
+    assert "launch_ms" in rec["launch_lost"] and rec["max_abs_err"] == 0
+    assert rec["ms"] == 1.0 and next(traces, None) is None
+    traces = iter([lost] * 5)
+    with pytest.raises(probes.LostLaunches):
+        probes.device_ms(lambda: None, ["k"])
+
+
+class _Event:
+    def __init__(self, name, us):
+        self.name, self.us = name, us
+        self.device_type = torch.autograd.DeviceType.CUDA
+        self.time_range = self
+
+    def elapsed_us(self):
+        return self.us
+
+
+def test_device_ms_sums_every_function_and_not_the_eviction(monkeypatch):
+    """P2's call launches four kernels: launch_ms is the sum of all of
+    them; the L2 eviction launched before each call counts neither in a
+    named probe's time nor in a library call's (functions=None). The
+    profiler is a stand-in: its CUDA activity needs a card."""
+    runs = 2
+    names = {"ns::partition_count_kernel(int)": 4.0,
+             "ns::partition_scan_kernel(int)": 2.0,
+             "ns::partition_scatter_kernel(int)": 6.0,
+             "ns::merge_join_kernel(int)": 8.0,
+             f"ns::{probes.EVICT_FUNCTION}(int4 const*)": 30.0}
+    calls = []
+
+    class _Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def events(self):
+            return [_Event(k, v) for k, v in names.items()] * runs
+
+    monkeypatch.setattr(torch.profiler, "profile", _Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    ms, parts = probes.device_ms(lambda: calls.append("call"),
+                                 probes.FUNCTIONS["merge_join_sum"],
+                                 runs=runs,
+                                 before=lambda: calls.append("evict"))
+    assert ms == pytest.approx(0.020)
+    assert set(parts) == set(probes.FUNCTIONS["merge_join_sum"])
+    # the warm-up and each traced call come after their eviction
+    assert calls == ["evict", "call"] * (runs + 1)
+    ms_all, parts_all = probes.device_ms(lambda: None, runs=runs)
+    assert ms_all == pytest.approx(0.020)
+    assert not any(probes.EVICT_FUNCTION in k for k in parts_all)
