@@ -21,8 +21,12 @@ Phases, one line each; any failure exits non-zero:
             every genome window extracted with K1, unique per (value,
             species), padded with never-matching decoy rows to 2^28 rows
   kernels   K1-K4 against their plain versions at the main path's shapes
-            (8,192 reads of 150 bp), and K1 also at the DB build's shape
-            (one launch of 64 genomes of 100 kb): integers equal, float32
+            (8,192 reads of 150 bp), and K1 also at the smoke DB's shape
+            (one launch of 64 genomes of 100 kb), at the CLI build's
+            (build_blocks: its largest padded batch of predicted gene
+            blocks of 8 species) and on one 30 Mb sequence (long_row: its
+            length bucket of 50,331,648 bases is 65,536 chunks of 256
+            windows): integers equal, float32
             bitwise; the median ms of each over 5 runs after a warm-up,
             from CUDA events, for the wrapper (ms) and the plain version;
             its kernels' device time alone (launch_ms, median of 5 from a
@@ -33,6 +37,16 @@ Phases, one line each; any failure exits non-zero:
             through the plain versions gives identical classification lines
   tiny      the two-genome world of .claude/skills/verify/SKILL.md through
             the CLI: all 120 reads classified, the report 50/50
+  dbbuild   the port's CLI ``build`` of the skew world as a FASTA library
+            (tools.world.write_library: 384 species x 100 kb, one file per
+            genus) at the defaults (gene prediction and masking on), then
+            ``updateDB`` with a new genus of 16 random 100 kb genomes
+            (tools.world.new_genus, --new-taxa), then ``classify`` of the
+            65,536 reads against the updated DB; each with the kernels'
+            launch counts (K1 > 0 in build and updateDB), stage seconds,
+            peak device memory; the DB digests, the classified count and
+            the classifications' digest must equal the JAX package's on
+            the CPU (the constants below)
   classify  the CLI on 65,536 reads of 150 bp (tools.world.sample_reads,
             max_mut 2, 10 % random reads), 8,192 per batch: reads/s, stage
             times, peak memory, and every kernel's launch count > 0
@@ -63,6 +77,24 @@ DB_CHUNK = 64   # genomes per K1 launch of the DB build
 # classified reads of the 65,536 (world and reads from seed 0): the count
 # every earlier run of this script gave on the card
 CLASSIFIED = 58_985
+# the dbbuild phase's results from the JAX package on the CPU, for the
+# same files and flags, printed by
+#   JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py
+# (sha256 of diffIdx + info + taxID_list; of the blocks handed to
+# extraction; of the classifications file)
+DB_DATE = "2026-01-01"
+BUILD_DB_SHA256 = (
+    "54434100fb92a104349d323cfc2815cc7e38314fffe0626b6eb4ab2ab992cd50")
+BUILD_BLOCKS_SHA256 = (
+    "bd85eb7000f51ce0a9f1caa35227210570b2d8fb66354e2dab2d6aa61467bb05")
+UPDATE_DB_SHA256 = (
+    "bc088ccc65e69f744b10b7781a06fb37cc5381432bcc00d64745b56a2f3c816d")
+UPDATE_BLOCKS_SHA256 = (
+    "cf811256f049fd5f517ec42330213627a68f38558d9b9487a8b0e48b02c83566")
+UPDATED_CLASSIFIED = 58_984
+UPDATED_CLASSIFICATIONS_SHA256 = (
+    "731474296ae78e408fd952ad90169c3ff0a9062e458989f0026ccb2b29253d79")
+LONG_ROW = 30_000_000  # bases of the long_row K1 record
 
 # kernel name -> its CUDA functions, as the profiler names them
 KERNEL_FUNCTIONS = {"extract_metamers": ["extract_kernel"],
@@ -216,9 +248,11 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def kernel_phase(clf, metas, rows, db_chunk) -> dict:
+def kernel_phase(clf, metas, rows, db_chunk, build_blocks) -> dict:
     """K1-K4 against their plain versions on one batch's tensors, and K1
-    also on one launch of the DB build (``db_chunk``: its genomes)."""
+    also on one launch of the smoke DB's build (``db_chunk``: its
+    genomes), on the CLI build's padded gene-block batch
+    (``build_blocks``: codes and lens) and on a 30 Mb row."""
     import torch
 
     from metabuli_tpu_torch.classify import device_chain, device_combine
@@ -283,6 +317,17 @@ def kernel_phase(clf, metas, rows, db_chunk) -> dict:
            lambda: encode.extract_metamers_plain(gc, gl),
            lambda r: nbytes([gc, gl, *r]), shape="db_chunk")
     del gc, gl
+    for shape, (c, ln) in (("build_blocks", build_blocks),
+                           ("long_row", long_row())):
+        c, ln = torch.from_numpy(c).to(dev), torch.from_numpy(ln).to(dev)
+        say("kernels", shape=shape, rows=c.shape[0], bases=c.shape[1],
+            chunks=-(-encode.max_windows(c.shape[1]) // 256))
+        record("extract_metamers",
+               lambda: encode.extract_metamers(c, ln),
+               lambda: encode.extract_metamers_plain(c, ln),
+               lambda r: nbytes([c, ln, *r]), shape=shape)
+        del c, ln
+        torch.cuda.empty_cache()
     idx, W = clf.dev_index, mm.value.shape[2]
     q = (mm.value.reshape(-1), mm.valid.reshape(-1), mm.dna48.reshape(-1))
     gs, ge, hit = pipeline._search_groups(idx, q[0], q[1])
@@ -329,6 +374,135 @@ def kernel_phase(clf, metas, rows, db_chunk) -> dict:
     say("kernels", matches=counts["n_matches"], paths=P, groups=G,
         trimmed_sides=n_trim, group_reads=n_read)
     return out
+
+
+def long_row():
+    """One LONG_ROW-base sequence padded to the build's length bucket
+    (384 * 2^k bases): codes [1, L] uint8, lens [1] int32."""
+    from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
+
+    bucket = 384
+    while bucket < LONG_ROW + 2:
+        bucket *= 2
+    rng = np.random.default_rng(30)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    return encode_seqs_padded([bytes(rng.choice(acgt, LONG_ROW))],
+                              max_len=bucket)
+
+
+def build_block_batch(tax, genomes, dev):
+    """The largest padded batch (rows x bucket) that the CLI build hands
+    K1 from the predicted gene blocks of ``genomes`` (masking on, the
+    defaults): codes and lens."""
+    from metabuli_tpu_torch.db.build import (IndexBuilder, SeqTask,
+                                             predict_gene_blocks)
+    from metabuli_tpu_torch.params import BuildParams
+
+    par = BuildParams()
+    tasks = []
+    for g, sp in genomes:
+        t = tax.to_internal(sp)
+        tasks.append(SeqTask(g, t, int(tax.species_of[t])))
+    blocks = predict_gene_blocks(tasks, tax, mask_mode=par.mask_mode,
+                                 mask_prob=par.mask_prob)
+    builder = IndexBuilder(par, tax, device=dev)
+    batch = max(builder.batches(blocks),
+                key=lambda b: len(b) * max(len(t.seq) for t in b))
+    return builder.padded(batch)
+
+
+def sha256_of(*paths) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for path in paths:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def dbbuild_phase(tmp, tax, genomes, fq, dev) -> dict:
+    """The CLI's build, updateDB and classify (see the module docstring);
+    returns each step's kernel launch counts."""
+    import torch
+
+    from metabuli_tpu_torch.csrc import build
+    from metabuli_tpu_torch.tools import world
+
+    lib, acc = world.write_library(os.path.join(tmp, "library"), genomes,
+                                   world.genus_of(tax, genomes))
+    new_lib, new_acc, new_taxa, _ = world.new_genus(
+        os.path.join(tmp, "new_genus"), tax)
+    bdb = os.path.join(tmp, "built_db")
+    udb = os.path.join(tmp, "updated_db")
+    out = os.path.join(tmp, "updated_out")
+    launches = {}
+
+    def counted(step, argv):
+        """One CLI run with every launch count set to 0 just before it and
+        read just after."""
+        for k in build.launches:
+            build.launches[k] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        s = run_cli(argv)
+        s["run_s"] = time.perf_counter() - t0
+        s["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        launches[step] = dict(build.launches)
+        return s
+
+    def check_db(step, s, db, want_db, want_blocks):
+        got = sha256_of(*(os.path.join(db, f)
+                          for f in ("diffIdx", "info", "taxID_list")))
+        k1 = launches[step]["extract_metamers"]
+        stage_s = {k: round(v, 3) for k, v in s["stage_s"].items()}
+        say("dbbuild", step=step, sequences=s["sequences"],
+            blocks=s["blocks"], total_kmers=s["total_kmers"],
+            unique_kmers=s["unique_kmers"], k1_launches=k1,
+            run_s=round(s["run_s"], 3),
+            db_bytes=sum(os.path.getsize(os.path.join(db, f))
+                         for f in os.listdir(db)),
+            peak_mem_gib=round(s["peak_mem_gib"], 3))
+        say("dbbuild", step=step, stage_s=stage_s,
+            other_s=round(s["run_s"] - sum(s["stage_s"].values()), 3))
+        say("dbbuild", step=step, db_sha256=got, equal_jax=got == want_db,
+            blocks_sha256=s["blocks_sha256"],
+            blocks_equal_jax=s["blocks_sha256"] == want_blocks)
+        if k1 == 0:
+            fail("dbbuild", f"{step}: K1 never launched")
+        if got != want_db:
+            fail("dbbuild", f"{step}: the DB differs from the JAX package's "
+                 + ("(so do the gene blocks: the host's gene prediction)"
+                    if s["blocks_sha256"] != want_blocks else
+                    "(the gene blocks are equal: extraction or later)"))
+
+    s = counted("build", ["build", bdb, lib, acc, "--taxonomy-path",
+                          os.path.join(tmp, "skew_taxonomy"),
+                          "--db-date", DB_DATE])
+    check_db("build", s, bdb, BUILD_DB_SHA256, BUILD_BLOCKS_SHA256)
+    s = counted("update", ["updateDB", udb, new_lib, new_acc, "--old-db",
+                           bdb, "--new-taxa", new_taxa, "--db-date",
+                           DB_DATE])
+    check_db("update", s, udb, UPDATE_DB_SHA256, UPDATE_BLOCKS_SHA256)
+    s = counted("classify", ["classify", fq, udb, out, "updated",
+                             "--seq-mode", "1", "--batch-reads", "8192"])
+    digest = sha256_of(os.path.join(out, "updated_classifications.tsv"))
+    say("dbbuild", step="classify", reads=s["reads"],
+        classified=s["classified"],
+        reads_per_s=round(s["reads"] / s["classify_s"], 1),
+        classify_s=round(s["classify_s"], 3),
+        peak_mem_gib=round(s["peak_mem_gib"], 3),
+        launches=launches["classify"])
+    say("dbbuild", step="classify",
+        stage_ms={k: round(v, 3) for k, v in s["stage_ms"].items()})
+    say("dbbuild", step="classify", classifications_sha256=digest,
+        equal_jax=digest == UPDATED_CLASSIFICATIONS_SHA256)
+    if s["classified"] != UPDATED_CLASSIFIED:
+        fail("dbbuild", f"{s['classified']} reads classified, the JAX "
+                        f"package {UPDATED_CLASSIFIED}")
+    if digest != UPDATED_CLASSIFICATIONS_SHA256:
+        fail("dbbuild", "the classifications differ from the JAX package's")
+    return launches
 
 
 # ------------------------------------------------------------------- main
@@ -423,7 +597,8 @@ def main() -> int:
             index_rows=clf.dev_index.n,
             resident_gib=round(resident / 2**30, 3))
         metas, rows = next(clf._iter_batches(fq, None))
-        timings = kernel_phase(clf, metas, rows, genomes[:DB_CHUNK])
+        timings = kernel_phase(clf, metas, rows, genomes[:DB_CHUNK],
+                               build_block_batch(tax, genomes[:8], dev))
         lines = {}
         for plain in (False, True):
             torch.cuda.reset_peak_memory_stats(dev)
@@ -474,6 +649,9 @@ def main() -> int:
         if s["classified"] != 120 or halves != [50.0, 50.0]:
             fail("tiny", "expected 120 classified reads split 50/50")
 
+        # ---- dbbuild: the CLI's build, updateDB and classify
+        build_launches = dbbuild_phase(tmp, tax, genomes, fq, dev)
+
         # ---- classify: the CLI on 65,536 reads, kernels counted
         for k in build.launches:
             build.launches[k] = 0
@@ -504,6 +682,9 @@ def main() -> int:
     probe_keys = ("max_abs_err", "l2", "ms", "loop_ms", "launch_ms",
                   "plain_ms", "bound_ms", "bound_by", "library_ms",
                   "library_loop_ms", "library_launch_ms")
+    timings["extract_metamers"].update(
+        launches_build=build_launches["build"]["extract_metamers"],
+        launches_update=build_launches["update"]["extract_metamers"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], **timings[name]}

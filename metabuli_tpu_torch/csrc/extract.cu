@@ -9,10 +9,13 @@
 // writes value, dna48 (8 B each), pos (4 B) and valid (1 B): 21 B a slot,
 // against 1 B a base of input, so the kernel is a stream of stores. The
 // design keeps everything else off the memory path:
-//   * grid (row, chunk): a CTA takes CHUNK windows of one row (a short
-//     read is one chunk; a 100 kb genome is ~130) plus the 23-base halo
-//     the chunk's last window reaches, so long rows tile the same way;
-//     its place comes from blockIdx, with no 64-bit division;
+//   * a CTA takes CHUNK windows of one row (a short read is one chunk; a
+//     100 kb genome is ~130) plus the 23-base halo the chunk's last
+//     window reaches, so long rows tile the same way; the grid is 1-D
+//     over (row, chunk), row-major, so a row may have any number of
+//     chunks (a 2-D grid capped them at 65,535, rows of ~50 Mb bases):
+//     one 32-bit division a CTA gives its place; base offsets are 64-bit,
+//     so rows up to 2^31 bases index correctly;
 //   * the chunk's bases are loaded once into shared memory with 4-byte
 //     coalesced loads; one pass then decodes each frame's codons once
 //     (6-bit code, amino acid, codon number, valid flag) into a shared
@@ -42,7 +45,7 @@ constexpr uint32_t VALID = 1u << 15;
 
 __global__ void __launch_bounds__(THREADS)
 extract_kernel(const uint8_t* __restrict__ codes,
-               const int32_t* __restrict__ lens, int L, int W,
+               const int32_t* __restrict__ lens, int L, int W, int chunks,
                int syncmer, int smer_len,
                const int32_t* __restrict__ aa_tab,
                const int32_t* __restrict__ num_tab,
@@ -52,16 +55,18 @@ extract_kernel(const uint8_t* __restrict__ codes,
   __shared__ uint16_t s_tab[64];         // aa << 3 | codon number
   __shared__ uint16_t s_cod[6][CODONS];  // VALID | aa << 9 | num << 6 | c6
   __shared__ uint64_t s_smer[6][CODONS];
-  const int b = blockIdx.x;
-  const int w0 = blockIdx.y * CHUNK;
+  const unsigned chunk = blockIdx.x % (unsigned)chunks;
+  const int b = (int)(blockIdx.x / (unsigned)chunks);
+  const int w0 = (int)chunk * CHUNK;
   const int cw = min(CHUNK, W - w0);
   const int tid = threadIdx.x;
   const int len = lens[b];
   const int aa_len = len >= 2 ? (len - 2) / 3 : 0;
 
   // bases [3 w0, 3 w0 + 3 cw + 23) of the row, as aligned 4-byte words
-  const int base0 = 3 * w0;
-  const int nb = min(3 * cw + HALO, L - base0);
+  const int64_t base0 = 3 * (int64_t)w0;
+  const int64_t left = (int64_t)L - base0;
+  const int nb = left < 3 * cw + HALO ? (int)left : 3 * cw + HALO;
   const uint8_t* first = codes + (int64_t)b * L + base0;
   const int shift = (int)((uintptr_t)first & 3);
   const uint32_t* words = (const uint32_t*)(first - shift);
@@ -139,7 +144,7 @@ extract_kernel(const uint8_t* __restrict__ codes,
     const int64_t t = ((int64_t)b * 6 + f) * W + w;
     value[t] = ok ? (int64_t)(aa_part << 24 | dna_part) : 0;
     dna48[t] = ok ? (int64_t)d48 : 0;
-    pos[t] = begin + 3 * w;
+    pos[t] = (int32_t)(begin + 3 * (int64_t)w);
     valid[t] = ok;
   }
 }
@@ -153,10 +158,11 @@ extern "C" int mtb_extract_metamers(const uint8_t* codes, const int32_t* lens,
                                     int32_t* pos, bool* valid, int64_t* dna48,
                                     cudaStream_t stream) {
   const int chunks = (W + CHUNK - 1) / CHUNK;
-  if (chunks > 65535 || smer_len < 1 || smer_len > K)
+  const int64_t ctas = (int64_t)B * chunks;  // grid x holds up to 2^31 - 1
+  if (B < 1 || W < 1 || ctas > 0x7fffffff || smer_len < 1 || smer_len > K)
     return (int)cudaErrorInvalidValue;
-  extract_kernel<<<dim3((unsigned)B, (unsigned)chunks), THREADS, 0, stream>>>(
-      codes, lens, L, W, syncmer, smer_len, aa_tab, num_tab, value, pos,
-      valid, dna48);
+  extract_kernel<<<(unsigned)ctas, THREADS, 0, stream>>>(
+      codes, lens, L, W, chunks, syncmer, smer_len, aa_tab, num_tab, value,
+      pos, valid, dna48);
   return (int)cudaGetLastError();
 }

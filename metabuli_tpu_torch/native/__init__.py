@@ -2,10 +2,11 @@
 
 The sources live here, byte-identical copies of the reference package's
 ``metabuli_tpu/native/*.cpp`` that the port calls (the taxonomer finish,
-tantan masking, FASTX parsing, key sorts), built with the reference
-package's flags into this package's git-ignored build directory; nothing
-is written next to the sources. A failed build raises: the port has no
-pure-Python fallback for the taxonomer finish.
+tantan masking, gene prediction with the Prodigal port, FASTX parsing,
+key sorts), built with the reference package's flags into this package's
+git-ignored build directory; nothing is written next to the sources. A
+failed build raises: the port has no pure-Python fallback for the
+taxonomer finish or the gene predictor.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 SRCS = [os.path.join(SRC_DIR, name) for name in
-        ("taxonomer.cpp", "masker.cpp", "fastx.cpp", "sortkeys.cpp")]
+        ("taxonomer.cpp", "masker.cpp", "genepred.cpp", "prodigal.cpp",
+         "fastx.cpp", "sortkeys.cpp")]
 _SO = os.path.join(BUILD_DIR, "libmetabuli_native.so")
 
 
@@ -37,7 +39,8 @@ def _build() -> str:
             return _SO
         tmp = f"{_SO}.{os.getpid()}.tmp"
         # the reference package's flags; -ffp-contract=off keeps the
-        # taxonomer's float arithmetic uncontracted, as it is built there
+        # taxonomer's and the Prodigal port's float arithmetic
+        # uncontracted, as it is built there
         cmd = [
             "g++", "-O3", "-march=native", "-ffp-contract=off", "-fopenmp",
             "-shared", "-fPIC", "-std=c++17", *SRCS, "-o", tmp, "-lz",

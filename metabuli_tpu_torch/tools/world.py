@@ -96,6 +96,59 @@ def skew_world(tmp: str, seed: int = 0):
     return tax, genomes, rng
 
 
+def genus_of(tax, genomes) -> dict[int, int]:
+    """species taxid -> its parent's taxid, for each genome."""
+    return {sp: tax.to_original(int(tax.parent[tax.to_internal(sp)]))
+            for _, sp in genomes}
+
+
+def write_library(d: str, genomes, genus: dict[int, int]) -> tuple[str, str]:
+    """The genomes as a FASTA library for ``build``/``updateDB``: one file
+    per genus (``genus_<taxid>.fna``, ``genus`` maps each species to it),
+    one record per species with the accession ``SKW_<species taxid>.1``,
+    the list of the files and an accession -> taxid map. Returns (list
+    path, map path)."""
+    os.makedirs(d, exist_ok=True)
+    by_genus: dict[int, list[str]] = {}
+    for seq, sp in genomes:
+        by_genus.setdefault(genus[sp], []).append(
+            f">SKW_{sp}.1\n{seq.decode()}\n")
+    files = []
+    for g, recs in by_genus.items():
+        files.append(os.path.join(d, f"genus_{g}.fna"))
+        with open(files[-1], "w") as fh:
+            fh.write("".join(recs))
+    lib = os.path.join(d, "library.txt")
+    with open(lib, "w") as fh:
+        fh.write("".join(f"{f}\n" for f in files))
+    acc = os.path.join(d, "acc2taxid.map")
+    with open(acc, "w") as fh:
+        fh.write("accession\ttaxid\n"
+                 + "".join(f"SKW_{sp}.1\t{sp}\n" for _, sp in genomes))
+    return lib, acc
+
+
+def new_genus(d: str, tax, n_species: int = 16, length: int = 100_000,
+              seed: int = 1):
+    """A genus the taxonomy does not have yet, for ``updateDB``: taxids
+    after the largest one, under the superkingdom (taxid 2), with
+    ``n_species`` uniform random genomes of ``length`` bases drawn from
+    ``seed``, written as a library (``write_library``) and a --new-taxa
+    file. Returns (list path, map path, new-taxa path, genomes)."""
+    rng = np.random.default_rng(seed)
+    gid = int(tax.internal2org.max()) + 1
+    rows = [(gid, 2, "genus", "G_new")] + [
+        (gid + 1 + i, gid, "species", f"S_new_{i}") for i in range(n_species)]
+    genomes = [(bytes(rng.choice(ACGT, length)), gid + 1 + i)
+               for i in range(n_species)]
+    os.makedirs(d, exist_ok=True)
+    new_taxa = os.path.join(d, "new_taxa.tsv")
+    with open(new_taxa, "w") as fh:
+        fh.write("".join(f"{t}\t{p}\t{r}\t{n}\n" for t, p, r, n in rows))
+    lib, acc = write_library(d, genomes, {sp: gid for _, sp in genomes})
+    return lib, acc, new_taxa, genomes
+
+
 def sample_reads(genomes, rng, n_reads: int, read_len: int, max_mut: int):
     """``n_reads`` reads of ``read_len`` bases: every tenth uniform random,
     the rest cut from the genomes in turn with up to ``max_mut`` random

@@ -13,14 +13,20 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 COPIES = [
     "params.py",
     "db/formats.py", "db/index.py", "db/taxonomy.py", "db/taxdb_binary.py",
+    "db/genes.py", "db/cds.py",
     "io/fasta.py", "io/report.py",
     "classify/taxonomer.py", "classify/native_taxonomer.py",
     "classify/em.py",
     "ops/genetic_code.py", "ops/mask.py",
     "native/sort.py",
     "native/taxonomer.cpp", "native/masker.cpp", "native/fastx.cpp",
-    "native/sortkeys.cpp",
+    "native/sortkeys.cpp", "native/genepred.cpp", "native/prodigal.cpp",
     "tools/validate.py", "tools/validate_input.py",
+    "tools/accession.py", "tools/benchmark.py", "tools/benchmark_sets.py",
+    "tools/databases.py", "tools/dbreport.py", "tools/extract.py",
+    "tools/grade.py", "tools/library.py", "tools/misc.py",
+    "tools/refiner.py",
+    "uniref/tree.py",
 ]
 
 
@@ -43,7 +49,8 @@ def test_native_loader_compiles_only_the_ports_own_sources():
 def test_port_cli_imports_neither_jax_nor_reference_package():
     code = ("import sys, metabuli_tpu_torch.cli, "
             "metabuli_tpu_torch.classify.classifier, "
-            "metabuli_tpu_torch.tools.probes; "
+            "metabuli_tpu_torch.tools.probes, metabuli_tpu_torch.db.build, "
+            "metabuli_tpu_torch.db.update, metabuli_tpu_torch.tools.misc; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'metabuli_tpu.')) or m == 'metabuli_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -519,3 +519,61 @@ def test_k4_group_sizes_and_overlaps_match_plain(case):
     torch.cuda.synchronize()
     _eq([got], [want])
     assert float(got.max()) < 1.0 and got.numel() == len(sizes)
+
+
+def test_k1_row_of_65536_chunks_matches_plain():
+    """A 30 Mb sequence in the build's length bucket (50,331,648 bases,
+    16,777,207 windows): 65,536 chunks of 256 windows, one past what a
+    2-D grid's y extent held."""
+    n, bucket = 30_000_000, 384 << 17
+    rng = np.random.default_rng(30)
+    codes, lens = encode_seqs_padded([bytes(rng.choice(ACGT, n))],
+                                     max_len=bucket)
+    assert codes.shape == (1, bucket)
+    assert -(-encode.max_windows(bucket) // 256) == 65_536
+    codes = torch.from_numpy(codes).to("cuda")
+    lens = torch.from_numpy(lens).to("cuda")
+    before = build.launches["extract_metamers"]
+    got = encode.extract_metamers(codes, lens)
+    assert build.launches["extract_metamers"] == before + 1
+    want = encode.extract_metamers_plain(codes, lens)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert int(got.valid[0, :, (n - 2) // 3 - 8].sum()) > 0
+    assert not bool(got.valid[0, :, (n - 2) // 3:].any())
+
+
+def test_k1_single_frame_rows_with_padding_rows_match_plain():
+    """The build's gene-block batches: short single-frame rows whose lens
+    cover floor(L/3) codons, padded to a power of two with lens-0 rows of
+    invalid codes; and the builder's gathered metamers on the card equal
+    its own on the CPU."""
+    from metabuli_tpu_torch.db.build import IndexBuilder, SeqTask
+    from metabuli_tpu_torch.params import BuildParams
+
+    rng = np.random.default_rng(6)
+    seqs = [bytes(rng.choice(ACGT, int(n)))
+            for n in rng.integers(24, 1100, 37)]
+    bucket = 1536
+    codes, _ = encode_seqs_padded(seqs, max_len=bucket)
+    real = np.array([len(s) for s in seqs], np.int64)
+    lens = (3 * (real // 3) + 2).astype(np.int32)
+    codes = np.concatenate([codes, np.full((64 - len(seqs), bucket), 7,
+                                           np.uint8)])
+    lens = np.concatenate([lens, np.zeros(64 - len(seqs), np.int32)])
+    codes = torch.from_numpy(codes).to("cuda")
+    lens = torch.from_numpy(lens).to("cuda")
+    got = encode.extract_metamers(codes, lens)
+    want = encode.extract_metamers_plain(codes, lens)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert not bool(got.valid[len(seqs):].any())
+
+    tasks = [SeqTask(s, 1, 1, single_frame=True) for s in seqs]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        # extraction alone reads no taxonomy
+        b = IndexBuilder(BuildParams(), None, device=dev)
+        b.add_sequences(tasks)
+        out[dev] = np.concatenate(b._values)
+    assert np.array_equal(out["cuda"], out["cpu"]) and len(out["cpu"]) > 0
