@@ -50,8 +50,30 @@ Phases, one line each; any failure exits non-zero:
   classify  the CLI on 65,536 reads of 150 bp (tools.world.sample_reads,
             max_mut 2, 10 % random reads), 8,192 per batch: reads/s, stage
             times, peak memory, and every kernel's launch count > 0
+  longread  bench.py's longread configuration: the "uniform" world (4
+            genera x 2 species of 200 kb), a DB of its 6-frame metamers
+            padded with never-matching decoys to 60,000,000 rows, 8,192
+            reads of 3,000 bases (max_mut 30); one automatic batch
+            (--batch-reads 0) whose device peak above the index must stay
+            within its byte budget; K1-K4 against their plain
+            versions on one 1,024-read batch (as in kernels, with the
+            largest K3 block and K4 group) and that batch through both
+            (identical lines), then the CLI with --seq-mode 3
+            --batch-reads 1024: reads/s, stage times, peak memory, every
+            kernel launched; the classified count and the classifications'
+            digest must equal the JAX package's on the CPU (constants
+            below)
+  hosttax   the classify phase's reads and DB through the CLI with
+            --device-tax 0 (K1 and K2 on the card, the native host
+            taxonomer): reads/s and the host assign's seconds; the
+            classifications must equal the classify phase's
+  pipeline  the classify phase's run is pipelined: the worker's finish
+            seconds, the part of them during which the main thread parsed
+            or dispatched another batch, and each thread's CPU seconds
 
-The last three lines are the kernels' JSON record (K1-K4, then the probes
+Each CLI run of a phase starts with every launch count at 0 and reads
+them when it returns. The last three lines are the kernels' JSON record
+(K1-K4, each with its longread record and launches, then the probes
 P1-P4 with their launches in the classify run, 0 since they are off the
 path, and their loop_ms and library_* times), nvidia-smi's name and power
 limit, and the device record.
@@ -73,7 +95,6 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ROWS = 1 << 28  # smoke DB rows after decoy padding
-DB_CHUNK = 64   # genomes per K1 launch of the DB build
 # classified reads of the 65,536 (world and reads from seed 0): the count
 # every earlier run of this script gave on the card
 CLASSIFIED = 58_985
@@ -95,6 +116,19 @@ UPDATED_CLASSIFIED = 58_984
 UPDATED_CLASSIFICATIONS_SHA256 = (
     "731474296ae78e408fd952ad90169c3ff0a9062e458989f0026ccb2b29253d79")
 LONG_ROW = 30_000_000  # bases of the long_row K1 record
+# the longread phase: bench.py's longread configuration (its TARGET_ROWS,
+# reads, read length and batch)
+LONGREAD_ROWS = 60_000_000
+LONGREAD_READS = 8_192
+LONGREAD_LEN = 3_000
+LONGREAD_BATCH = 1_024
+# the JAX package's classified count and classifications digest for the
+# same reads against the genome-derived rows of the same DB (with
+# never-matching decoys, which change no classification), printed by
+#   JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py longread
+LONGREAD_CLASSIFIED = 7_373
+LONGREAD_CLASSIFICATIONS_SHA256 = (
+    "4759244bdc2f7f244444d890205c3e688c0a2eec0b0ec5b17b81ac3db9a72b82")
 
 # kernel name -> its CUDA functions, as the profiler names them
 KERNEL_FUNCTIONS = {"extract_metamers": ["extract_kernel"],
@@ -123,95 +157,6 @@ def say(phase: str, **kv) -> None:
 def fail(phase: str, msg: str) -> None:
     print(f"[{phase}] FAILED: {msg}", flush=True)
     sys.exit(1)
-
-
-# ------------------------------------------------------------------ world
-def build_db(db_dir: str, tax, genomes, device, rows: int = 0) -> dict:
-    """Metamer DB of species-level genomes: 6-frame metamers of every
-    window (K1, DB_CHUNK genomes a launch), unique per (value, species)
-    (each genome is its own species, so the LCA taxid is that species),
-    optionally padded with decoy rows to ``rows`` (the decoy scheme of
-    the repository's benchmark script, bench.py)."""
-    import torch
-
-    from metabuli_tpu_torch.db.formats import DbParameters
-    from metabuli_tpu_torch.db.index import MetamerIndex
-    from metabuli_tpu_torch.ops import encode
-    from metabuli_tpu_torch.ops.encode import srl
-    from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
-
-    t0 = time.perf_counter()
-    sp_int = [tax.to_internal(sp) for _, sp in genomes]
-    assert all(int(tax.species_of[t]) == t for t in sp_int)
-    vals, taxs = [], []
-    for i in range(0, len(genomes), DB_CHUNK):
-        chunk = genomes[i:i + DB_CHUNK]
-        codes, lens = encode_seqs_padded([g for g, _ in chunk])
-        mm = encode.extract_metamers(torch.from_numpy(codes).to(device),
-                                     torch.from_numpy(lens).to(device))
-        t = torch.tensor(sp_int[i:i + DB_CHUNK], dtype=torch.int64,
-                         device=device)
-        vals.append(mm.value[mm.valid])
-        taxs.append(t[:, None, None].expand(mm.valid.shape)[mm.valid])
-        del mm
-    v = torch.cat(vals)
-    t = torch.cat(taxs)
-    del vals, taxs
-    flip = -(1 << 63)  # signed order of v ^ 2^63 == unsigned order of v
-
-    def sort_vt(v, t):
-        o = torch.sort(t, stable=True)[1]
-        o = o[torch.sort(v[o] ^ flip, stable=True)[1]]
-        return v[o], t[o]
-
-    v, t = sort_vt(v, t)
-    keep = torch.ones(v.numel(), dtype=torch.bool, device=device)
-    keep[1:] = (v[1:] != v[:-1]) | (t[1:] != t[:-1])
-    v, t = v[keep], t[keep]
-    n_real = int(v.numel())
-    n_decoys = max(0, rows - n_real) if rows else 0
-    if n_decoys:
-        # bench.py's decoys: uniform 40-bit AA keys (colliding
-        # keys dropped, so every genome-derived group stays as it is),
-        # uniform codons, taxids drawn from the real species; a 0.1 %
-        # surplus of draws makes up for the dropped keys so the table has
-        # exactly `rows`
-        rng = np.random.default_rng(12345)
-        n_draw = n_decoys + n_decoys // 1000 + 1024
-        aa = torch.from_numpy(rng.integers(0, 1 << 40, size=n_draw,
-                                           dtype=np.uint64).view(np.int64))
-        aa = aa.to(device)
-        aa = aa[~torch.isin(aa, torch.unique(srl(v, 24)))][:n_decoys]
-        dna = torch.from_numpy(rng.integers(0, 1 << 24, size=aa.numel(),
-                                            dtype=np.int64)).to(device)
-        species = np.unique(np.asarray(sp_int, np.int64))
-        dt = torch.from_numpy(rng.choice(species, size=aa.numel())).to(device)
-        v, t = sort_vt(torch.cat([v, (aa << 24) | dna]), torch.cat([t, dt]))
-        del aa, dna, dt
-    values = v.cpu().numpy().view(np.uint64)
-    taxids = t.to(torch.int32).cpu().numpy().view(np.uint32)
-    del v, t, keep
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    aa = values >> np.uint64(24)
-    change = np.nonzero(aa[1:] != aa[:-1])[0]
-    bounds = np.concatenate([[-1], change, [len(aa) - 1]])
-    max_group = int(np.diff(bounds).max())
-    del aa, change, bounds
-    MetamerIndex(values=values, taxids=taxids, taxonomy=tax,
-                 params=DbParameters(db_name="smoke", skip_redundancy=1),
-                 max_group=max_group).save(db_dir)
-    return {"rows": len(values), "genome_rows": n_real,
-            "decoy_rows": len(values) - n_real, "max_group": max_group,
-            "build_s": round(t1 - t0, 3),
-            "write_s": round(time.perf_counter() - t1, 3)}
-
-
-def write_fastq(path: str, reads) -> None:
-    with open(path, "w") as fh:
-        for i, r in enumerate(reads):
-            fh.write(f"@r{i}\n{r.decode()}\n+\n{'I' * len(r)}\n")
 
 
 def run_cli(argv) -> dict:
@@ -248,11 +193,12 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def kernel_phase(clf, metas, rows, db_chunk, build_blocks) -> dict:
-    """K1-K4 against their plain versions on one batch's tensors, and K1
-    also on one launch of the smoke DB's build (``db_chunk``: its
-    genomes), on the CLI build's padded gene-block batch
-    (``build_blocks``: codes and lens) and on a 30 Mb row."""
+def kernel_phase(clf, metas, rows, out, phase="kernels", shape=None,
+                 k1_shapes=()) -> dict:
+    """K1-K4 against their plain versions on one batch's tensors, into
+    ``out`` (kernel -> record; a ``shape`` of the batch goes under that
+    key of each record), and K1 also at ``k1_shapes``: (shape, (numpy
+    codes, lens) or a callable that returns them)."""
     import torch
 
     from metabuli_tpu_torch.classify import device_chain, device_combine
@@ -269,12 +215,11 @@ def kernel_phase(clf, metas, rows, db_chunk, build_blocks) -> dict:
     n = len(rows)
     offs = torch.zeros(n, dtype=torch.int32, device=dev)
     qids = torch.arange(n, dtype=torch.int32, device=dev)
-    out = {}
 
     def nbytes(ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def record(name, fn_k, fn_p, cost, shape=None):
+    def record(name, fn_k, fn_p, cost, shape=shape):
         """``cost(outputs)`` -> least bytes of the call; a second ``shape``
         of a kernel is kept under that key of its record."""
         got, want = fn_k(), fn_p()
@@ -292,15 +237,15 @@ def kernel_phase(clf, metas, rows, db_chunk, build_blocks) -> dict:
         if shape is None:
             out[name] = rec
         else:
-            out[name][shape] = rec
-        say("kernels", kernel=name, **({} if shape is None else
+            out.setdefault(name, {})[shape] = rec
+        say(phase, kernel=name, **({} if shape is None else
                                        {"shape": shape}), equal=err == 0,
             **{k: round(rec[k], 4)
                for k in ("ms", "launch_ms", "plain_ms", "bound_ms")},
             bound_by=b_by,
             launch_parts_ms=[round(p, 4) for p in parts.values()])
         if err != 0:
-            fail("kernels", f"{name} differs from its plain version ({err})")
+            fail(phase, f"{name} differs from its plain version ({err})")
         return got
 
     # least bytes: every input read once, every output written once (K2:
@@ -309,23 +254,15 @@ def kernel_phase(clf, metas, rows, db_chunk, build_blocks) -> dict:
                 lambda: encode.extract_metamers(codes, lens),
                 lambda: encode.extract_metamers_plain(codes, lens),
                 lambda mm: nbytes([codes, lens, *mm]))
-    gc, gl = encode_seqs_padded([g for g, _ in db_chunk])
-    gc, gl = torch.from_numpy(gc).to(dev), torch.from_numpy(gl).to(dev)
-    say("kernels", db_chunk_rows=gc.shape[0], db_chunk_bases=gc.shape[1])
-    record("extract_metamers",
-           lambda: encode.extract_metamers(gc, gl),
-           lambda: encode.extract_metamers_plain(gc, gl),
-           lambda r: nbytes([gc, gl, *r]), shape="db_chunk")
-    del gc, gl
-    for shape, (c, ln) in (("build_blocks", build_blocks),
-                           ("long_row", long_row())):
+    for k1_shape, batch in k1_shapes:
+        c, ln = batch() if callable(batch) else batch
         c, ln = torch.from_numpy(c).to(dev), torch.from_numpy(ln).to(dev)
-        say("kernels", shape=shape, rows=c.shape[0], bases=c.shape[1],
+        say(phase, shape=k1_shape, rows=c.shape[0], bases=c.shape[1],
             chunks=-(-encode.max_windows(c.shape[1]) // 256))
         record("extract_metamers",
                lambda: encode.extract_metamers(c, ln),
                lambda: encode.extract_metamers_plain(c, ln),
-               lambda r: nbytes([c, ln, *r]), shape=shape)
+               lambda r: nbytes([c, ln, *r]), shape=k1_shape)
         del c, ln
         torch.cuda.empty_cache()
     idx, W = clf.dev_index, mm.value.shape[2]
@@ -333,18 +270,22 @@ def kernel_phase(clf, metas, rows, db_chunk, build_blocks) -> dict:
     gs, ge, hit = pipeline._search_groups(idx, q[0], q[1])
     n_valid, n_hit = int(q[1].sum()), int(hit.sum())
     n_window = int((torch.minimum(ge, gs + clf.cap) - gs).sum())
-    say("kernels", slots=q[0].numel(), valid_slots=n_valid,
+    say(phase, slots=q[0].numel(), valid_slots=n_valid,
         hit_slots=n_hit, window_rows=n_window)
     cand = record("search_scan",
                   lambda: pipeline.search_scan(idx, *q, W, clf.cap),
                   lambda: pipeline.search_scan_plain(idx, *q, W, clf.cap),
                   lambda c: (17 * q[0].numel() + 12 * n_valid + 8 * n_hit
                              + 8 * n_window + 12 * c.row.numel()))
-    say("kernels", stash_per_slot=pipeline.stash_per_slot(idx),
+    say(phase, stash_per_slot=pipeline.stash_per_slot(idx),
         rows_per_hit=round(idx.rows_per_hit, 3),
         warps=(q[0].numel() + 31) // 32, warps_walked_again=cand.n_rewalk)
     m, counts = pipeline.classify_core(idx, clf.d_species, codes, lens, offs,
                                        qids, cap=clf.cap)
+    block = ((m.qid.long() << 40) | (m.species.long() << 8)
+             | (m.packed & 7).long())
+    largest = lambda k: int(torch.unique_consecutive(
+        k, return_counts=True)[1].max()) if k.numel() else 0
     frame, ham = m.packed & 7, (m.packed >> 3) & 0xFF
     h16 = (m.packed >> 11) & 0xFFFF
     dtx = clf.device_taxonomer
@@ -371,8 +312,13 @@ def kernel_phase(clf, metas, rows, db_chunk, build_blocks) -> dict:
            lambda: [device_combine.combine_paths(paths, gstart, rl)],
            lambda: [device_combine.combine_paths_plain(paths, gstart, rl)],
            lambda r: 12 * P + 4 * n_trim + 4 * (G + 1) + 8 * G + 4 * n_read)
-    say("kernels", matches=counts["n_matches"], paths=P, groups=G,
-        trimmed_sides=n_trim, group_reads=n_read)
+    say(phase, matches=counts["n_matches"], paths=P, groups=G,
+        trimmed_sides=n_trim, group_reads=n_read,
+        largest_k3_block_rows=largest(block),
+        largest_k3_group_rows=largest(
+            (block << 16) | torch.div(m.pos, 3, rounding_mode="floor")),
+        largest_k4_group_paths=int((gstart[1:] - gstart[:-1]).max())
+        if G else 0)
     return out
 
 
@@ -424,9 +370,6 @@ def sha256_of(*paths) -> str:
 def dbbuild_phase(tmp, tax, genomes, fq, dev) -> dict:
     """The CLI's build, updateDB and classify (see the module docstring);
     returns each step's kernel launch counts."""
-    import torch
-
-    from metabuli_tpu_torch.csrc import build
     from metabuli_tpu_torch.tools import world
 
     lib, acc = world.write_library(os.path.join(tmp, "library"), genomes,
@@ -439,16 +382,7 @@ def dbbuild_phase(tmp, tax, genomes, fq, dev) -> dict:
     launches = {}
 
     def counted(step, argv):
-        """One CLI run with every launch count set to 0 just before it and
-        read just after."""
-        for k in build.launches:
-            build.launches[k] = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        s = run_cli(argv)
-        s["run_s"] = time.perf_counter() - t0
-        s["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-        launches[step] = dict(build.launches)
+        s, launches[step] = counted_cli(argv, dev)
         return s
 
     def check_db(step, s, db, want_db, want_blocks):
@@ -505,6 +439,165 @@ def dbbuild_phase(tmp, tax, genomes, fq, dev) -> dict:
     return launches
 
 
+def parity(clf, metas, rows, resident, phase) -> None:
+    """One batch through the kernels and through the plain versions: the
+    classification lines must be identical."""
+    import torch
+
+    dev = clf.device
+    lines, peak = {}, {}
+    for plain in (False, True):
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = clf.classify_batch(metas, rows, plain=plain)
+        peak[plain] = torch.cuda.max_memory_allocated(dev) - resident
+        lines[plain] = [clf.reporter.classification_row(mt.name, rc,
+                                                        mt.read_len)
+                        for mt, rc in zip(metas, res)]
+    same = lines[False] == lines[True]
+    say(phase, reads=len(metas),
+        classified=sum(rc.is_classified for rc in res), identical=same,
+        batch_peak_gib=round(peak[False] / 2**30, 3),
+        plain_batch_peak_gib=round(peak[True] / 2**30, 3))
+    if not same:
+        fail(phase, "kernel and plain classifications differ")
+
+
+def counted_cli(argv, dev) -> tuple[dict, dict]:
+    """One CLI run with every launch count set to 0 just before it and
+    read just after: (its summary with run_s and peak_mem_gib, the count
+    of every kernel, K1-K4 and the probes)."""
+    import torch
+
+    from metabuli_tpu_torch.csrc import build
+
+    for k in build.launches:
+        build.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    s = run_cli(argv)
+    s["run_s"] = time.perf_counter() - t0
+    s["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return s, dict(build.launches)
+
+
+def longread_phase(tmp, dev, timings) -> dict:
+    """bench.py's longread configuration (see the module docstring);
+    returns the CLI run's launch counts."""
+    import torch
+
+    from metabuli_tpu_torch.classify.classifier import Classifier
+    from metabuli_tpu_torch.params import ClassifyParams
+    from metabuli_tpu_torch.tools import world
+
+    t0 = time.perf_counter()
+    tax, genomes, rng = world.make_world(tmp, "uniform")
+    db = os.path.join(tmp, "longread_db")
+    info = world.build_db(db, tax, genomes, dev, rows=LONGREAD_ROWS,
+                          never_match=True)
+    say("longread", **info)
+    if info["rows"] != LONGREAD_ROWS:
+        fail("longread", f"{info['rows']} rows, asked for {LONGREAD_ROWS}")
+    reads = world.sample_reads(genomes, rng, LONGREAD_READS, LONGREAD_LEN,
+                               max_mut=LONGREAD_LEN // 100)
+    fq = os.path.join(tmp, "long.fq")
+    world.write_fastq(fq, reads)
+    del reads
+    clf = Classifier(db, ClassifyParams(seq_mode=3, batch_reads=0),
+                     device=dev)
+    resident = torch.cuda.memory_allocated(dev)
+    say("longread", db_load_s=round(clf.load_s, 3), cap=clf.cap,
+        resident_gib=round(resident / 2**30, 3))
+    # one automatic batch (--batch-reads 0): its device peak above the
+    # resident index must stay within the byte budget it was cut for
+    auto_metas, auto_rows = next(clf._iter_batches(fq, None))
+    torch.cuda.reset_peak_memory_stats(dev)
+    clf.classify_batch(auto_metas, auto_rows)
+    auto_peak = torch.cuda.max_memory_allocated(dev) - resident
+    say("longread", auto_reads=len(auto_metas),
+        auto_bases=sum(len(r[0]) for r in auto_rows),
+        batch_reads=clf.par.batch_reads, batch_bases=clf.batch_bases,
+        auto_batch_peak_gib=round(auto_peak / 2**30, 3),
+        budget_gib=round(clf.batch_budget / 2**30, 3))
+    if auto_peak > clf.batch_budget:
+        fail("longread", "an automatic batch took more device memory than "
+                         "its budget")
+    # the CLI run's first batch: single-end reads, so read i is row i
+    metas, rows = auto_metas[:LONGREAD_BATCH], auto_rows[:LONGREAD_BATCH]
+    kernel_phase(clf, metas, rows, timings, phase="longread",
+                 shape="longread")
+    parity(clf, metas, rows, resident, "longread")
+    del clf
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "long_out")
+    s, counts = counted_cli(["classify", fq, db, out, "long", "--seq-mode",
+                             "3", "--batch-reads", str(LONGREAD_BATCH)], dev)
+    digest = sha256_of(os.path.join(out, "long_classifications.tsv"))
+    say("longread", reads=s["reads"], classified=s["classified"],
+        reads_per_s=round(s["reads"] / s["classify_s"], 1),
+        classify_s=round(s["classify_s"], 3), db_load_s=round(s["load_s"], 3),
+        finish_s=round(s["finish_s"], 3),
+        peak_mem_gib=round(s["peak_mem_gib"], 3), launches=counts)
+    say("longread", stage_ms={k: round(v, 3)
+                              for k, v in s["stage_ms"].items()})
+    say("longread", classifications_sha256=digest,
+        equal_jax=digest == LONGREAD_CLASSIFICATIONS_SHA256,
+        phase_s=round(time.perf_counter() - t0, 3))
+    if (s["reads"] != LONGREAD_READS
+            or min(counts[name] for name, _, _ in KERNELS) == 0):
+        fail("longread", f"{s['reads']} reads, launches {counts}")
+    if s["classified"] != LONGREAD_CLASSIFIED:
+        fail("longread", f"{s['classified']} reads classified, the JAX "
+                         f"package {LONGREAD_CLASSIFIED}")
+    if digest != LONGREAD_CLASSIFICATIONS_SHA256:
+        fail("longread", "the classifications differ from the JAX package's")
+    shutil.rmtree(os.path.join(tmp, "longread_db"), ignore_errors=True)
+    return counts
+
+
+def hosttax_phase(tmp, fq, db, want_digest, dev) -> dict:
+    """The smoke DB's 65,536 reads with --device-tax 0: the match core on
+    the card, the native host taxonomer; the classifications must equal
+    the default path's. Returns the launch counts."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "hosttax_out")
+    s, counts = counted_cli(["classify", fq, db, out, "hosttax",
+                             "--seq-mode", "1", "--batch-reads", "8192",
+                             "--device-tax", "0"], dev)
+    digest = sha256_of(os.path.join(out, "hosttax_classifications.tsv"))
+    say("hosttax", reads=s["reads"], classified=s["classified"],
+        reads_per_s=round(s["reads"] / s["classify_s"], 1),
+        classify_s=round(s["classify_s"], 3),
+        host_assign_s=round(s["finish_s"], 3),
+        assign_overlap_s=round(s["finish_overlap_s"], 3),
+        peak_mem_gib=round(s["peak_mem_gib"], 3), launches=counts)
+    say("hosttax", stage_ms={k: round(v, 3)
+                             for k, v in s["stage_ms"].items()},
+        equal_default=digest == want_digest,
+        phase_s=round(time.perf_counter() - t0, 3))
+    if counts["extract_metamers"] == 0 or counts["search_scan"] == 0:
+        fail("hosttax", f"K1 or K2 never launched: {counts}")
+    if digest != want_digest:
+        fail("hosttax", "the classifications differ from the default path's")
+    return counts
+
+
+def pipeline_phase(s) -> None:
+    """The classify phase's CLI run, pipelined: the worker's finish
+    seconds, the part of them during which the main thread parsed or
+    dispatched another batch, and each thread's CPU seconds."""
+    say("pipeline", classified=s["classified"],
+        classify_s=round(s["classify_s"], 3),
+        finish_s=round(s["finish_s"], 3),
+        overlap_s=round(s["finish_overlap_s"], 3),
+        overlap_share=round(s["finish_overlap_s"] / max(s["finish_s"],
+                                                        1e-9), 3),
+        finish_cpu_s=round(s["finish_cpu_s"], 3),
+        main_cpu_s=round(s["main_cpu_s"], 3),
+        dispatch_s=round(s["device_s"], 3), worker_s=round(s["tax_s"], 3))
+    if s["classified"] != CLASSIFIED:
+        fail("pipeline", f"{s['classified']} reads classified")
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     # ---- device
@@ -528,6 +621,7 @@ def main() -> int:
     from metabuli_tpu_torch import native
     from metabuli_tpu_torch.classify.classifier import Classifier
     from metabuli_tpu_torch.csrc import build
+    from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
     from metabuli_tpu_torch.params import ClassifyParams
 
     # ---- build
@@ -579,15 +673,15 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="metabuli_smoke_")
     try:
         # ---- db
-        tax, genomes, rng = world.skew_world(tmp)
+        tax, genomes, rng = world.make_world(tmp, "skew")
         db = os.path.join(tmp, "db")
-        info = build_db(db, tax, genomes, dev, rows=ROWS)
+        info = world.build_db(db, tax, genomes, dev, rows=ROWS)
         say("db", **info)
         if info["rows"] != ROWS:
             fail("db", f"{info['rows']} rows, asked for {ROWS}")
         reads = world.sample_reads(genomes, rng, 65_536, 150, max_mut=2)
         fq = os.path.join(tmp, "reads.fq")
-        write_fastq(fq, reads)
+        world.write_fastq(fq, reads)
 
         # ---- kernels + parity (one classifier, one 8,192-read batch)
         par = ClassifyParams(seq_mode=1, batch_reads=8192)
@@ -597,25 +691,13 @@ def main() -> int:
             index_rows=clf.dev_index.n,
             resident_gib=round(resident / 2**30, 3))
         metas, rows = next(clf._iter_batches(fq, None))
-        timings = kernel_phase(clf, metas, rows, genomes[:DB_CHUNK],
-                               build_block_batch(tax, genomes[:8], dev))
-        lines = {}
-        for plain in (False, True):
-            torch.cuda.reset_peak_memory_stats(dev)
-            res = clf.classify_batch(metas, rows, plain=plain)
-            batch_peak = torch.cuda.max_memory_allocated(dev) - resident
-            lines[plain] = [clf.reporter.classification_row(mt.name, rc,
-                                                            mt.read_len)
-                            for mt, rc in zip(metas, res)]
-            if not plain:
-                kernel_batch_peak = batch_peak
-        same = lines[False] == lines[True]
-        n_cls = sum(rc.is_classified for rc in res)
-        say("parity", reads=len(metas), classified=n_cls, identical=same,
-            batch_peak_gib=round(kernel_batch_peak / 2**30, 3),
-            plain_batch_peak_gib=round(batch_peak / 2**30, 3))
-        if not same:
-            fail("parity", "kernel and plain classifications differ")
+        timings = {}
+        kernel_phase(clf, metas, rows, timings, k1_shapes=[
+            ("db_chunk", encode_seqs_padded(
+                [g for g, _ in genomes[:world.DB_CHUNK]])),
+            ("build_blocks", build_block_batch(tax, genomes[:8], dev)),
+            ("long_row", long_row)])
+        parity(clf, metas, rows, resident, "parity")
         del clf
         torch.cuda.empty_cache()
 
@@ -633,10 +715,11 @@ def main() -> int:
 
         ttax = Taxonomy.from_dmp(*(os.path.join(tdir, "taxonomy", f) for f in
                                    ("names.dmp", "nodes.dmp", "merged.dmp")))
-        build_db(os.path.join(tdir, "db"), ttax, [(g1, 4), (g2, 8)], dev)
+        world.build_db(os.path.join(tdir, "db"), ttax, [(g1, 4), (g2, 8)],
+                       dev)
         treads = ([g1[i * 160:i * 160 + 150] for i in range(60)]
                   + [g2[i * 160:i * 160 + 150] for i in range(60)])
-        write_fastq(os.path.join(tdir, "reads.fq"), treads)
+        world.write_fastq(os.path.join(tdir, "reads.fq"), treads)
         s = run_cli(["classify", os.path.join(tdir, "reads.fq"),
                      os.path.join(tdir, "db"), os.path.join(tdir, "out"),
                      "e2e", "--seq-mode", "1", "--batch-reads", "128"])
@@ -653,20 +736,17 @@ def main() -> int:
         build_launches = dbbuild_phase(tmp, tax, genomes, fq, dev)
 
         # ---- classify: the CLI on 65,536 reads, kernels counted
-        for k in build.launches:
-            build.launches[k] = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        s = run_cli(["classify", fq, db, os.path.join(tmp, "out"), "smoke",
-                     "--seq-mode", "1", "--batch-reads", "8192"])
-        peak = torch.cuda.max_memory_allocated(dev)
-        counts = {name: build.launches[name] for name, _, _ in KERNELS}
+        s, counts = counted_cli(["classify", fq, db,
+                                 os.path.join(tmp, "out"), "smoke",
+                                 "--seq-mode", "1", "--batch-reads", "8192"],
+                                dev)
         with open(os.path.join(tmp, "out", "smoke_classifications.tsv")) as fh:
             n_lines = sum(1 for ln in fh if not ln.startswith("#"))
         rate = s["reads"] / s["classify_s"]
         say("classify", reads=s["reads"], classified=s["classified"],
             db_load_s=round(s["load_s"], 3),
             reads_per_s=round(rate, 1), classify_s=round(s["classify_s"], 3),
-            peak_mem_gib=round(peak / 2**30, 3), launches=counts)
+            peak_mem_gib=round(s["peak_mem_gib"], 3), launches=counts)
         say("classify", stage_ms={k: round(v, 3)
                                   for k, v in s["stage_ms"].items()})
         if s["reads"] != 65_536 or n_lines != 65_536:
@@ -674,8 +754,15 @@ def main() -> int:
         if s["classified"] != CLASSIFIED:
             fail("classify", f"{s['classified']} reads classified, "
                              f"expected {CLASSIFIED}")
-        if min(counts.values()) == 0:
+        if min(counts[name] for name, _, _ in KERNELS) == 0:
             fail("classify", f"a kernel never launched: {counts}")
+        smoke_digest = sha256_of(os.path.join(tmp, "out",
+                                              "smoke_classifications.tsv"))
+
+        # ---- longread, hosttax, pipeline
+        lr_launches = longread_phase(tmp, dev, timings)
+        ht_launches = hosttax_phase(tmp, fq, db, smoke_digest, dev)
+        pipeline_phase(s)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -685,12 +772,15 @@ def main() -> int:
     timings["extract_metamers"].update(
         launches_build=build_launches["build"]["extract_metamers"],
         launches_update=build_launches["update"]["extract_metamers"])
+    for name, _, _ in KERNELS:
+        timings[name].update(launches_longread=lr_launches[name],
+                             launches_hosttax=ht_launches[name])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], **timings[name]}
         for name, src, rep in KERNELS] + [
         {"name": name, "route": r["route"], "source": r["source"],
-         "replaces": r["replaces"], "launches": build.launches[name],
+         "replaces": r["replaces"], "launches": counts[name],
          **{k: r[k] for k in probe_keys}}
         for name, r in probe_res.items()]}))
     print(card, flush=True)

@@ -1,11 +1,22 @@
 """Classification orchestrator: file -> batches -> device -> reports.
 
-Counterpart of ``metabuli_tpu.classify.classifier`` (`Classifier.cpp:44-164`)
-for its default path, the fused device taxonomer: reads stream in
-batches, each batch runs the match core and the taxonomer stages on the
-device, and the host finishes each read and writes the classifications,
-report and Krona files. Stages are sized exactly on the device, so there
-is no warm-up batch and no retry.
+Counterpart of ``metabuli_tpu.classify.classifier`` (`Classifier.cpp:44-164`):
+reads stream in batches (short reads, pairs, or long reads and contigs
+with ``--seq-mode 3``); each batch runs the match core on the device and
+then one of the reference package's three taxonomer paths:
+
+  device  (the default) the taxonomer stages on the device, the native
+          ``taxonomer_finish`` on the host;
+  host    (``--device-tax 0``) the sorted matches to the host, the native
+          ``taxonomer_assign``;
+  log     (``--print-log``) the sorted matches to the host, the Python
+          ``Taxonomer`` per read, which prints each species' match paths.
+
+Batches run in a depth-2 pipeline, as in the reference package: the main
+thread parses, encodes, uploads and dispatches batch i+1 while one worker
+thread finishes batch i on the host; batches are written in order. Stages
+are sized exactly on the device, so there is no warm-up batch and no
+retry.
 
 Paths that are not ported raise ``NotImplementedError`` naming their
 ROADMAP.md item; none is taken quietly.
@@ -15,7 +26,9 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,8 +39,10 @@ from ..io.report import Reporter
 from ..ops.genetic_code import encode_seqs_padded
 from ..params import ClassifyParams
 from .device_taxonomer import DeviceTaxonomer
-from .pipeline import build_dev_index
-from .taxonomer import ReadClassification, TaxonomerParams
+from .native_taxonomer import NativeTaxonomer
+from .pipeline import (FIELDS, HostCopy, MatchColumns, build_dev_index,
+                       classify_core, matches_to_host, to_host_async)
+from .taxonomer import ReadClassification, Taxonomer, TaxonomerParams
 
 # device bytes per table row: taxdna + d48 (16) + a group's grest, gstart,
 # gend (12, at most one group per row)
@@ -37,8 +52,10 @@ BYTES_PER_ROW = 28
 # on an H100 80GB HBM3 (chip_smoke.py's skew DB)
 BUILD_BYTES_PER_ROW = 92
 # device bytes per 150 bp read of a batch above the resident index: 0.346
-# GiB for 8,192 reads, measured on the same card and DB
+# GiB for 8,192 reads, measured on the same card and DB; an automatic
+# batch also ends at these bytes per base (long reads, contigs)
 BATCH_BYTES_PER_READ = 45_400
+BATCH_READ_LEN = 150
 
 
 def not_ported(what: str, item: str):
@@ -59,7 +76,9 @@ class QueryMeta:
 
 class StageTimer:
     """Per-stage wall time of the batches, from CUDA events on the card
-    (host clock on the CPU); ``ms`` accumulates over the run."""
+    (host clock on the CPU); ``ms`` accumulates over the run. A batch's
+    marks are read once its device work is done (``resolve``), so timing
+    adds no synchronisation to the dispatch."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -79,13 +98,44 @@ class StageTimer:
     def mark(self, name: str):
         self._marks.append((name, self._now()))
 
-    def stop(self):
-        if self.cuda:
-            torch.cuda.synchronize()
-        for (_, a), (name, b) in zip(self._marks, self._marks[1:]):
-            ms = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-            self.ms[name] = self.ms.get(name, 0.0) + ms
-        self._marks = []
+    def stop(self) -> list:
+        """Close the batch's marks and return them for ``resolve``."""
+        marks, self._marks = self._marks, []
+        return marks
+
+    def resolve(self, marks: list):
+        if self.cuda and marks:
+            marks[-1][1].synchronize()
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            self.add(name, a.elapsed_time(b) if self.cuda else (b - a) * 1e3)
+
+    def add(self, name: str, ms: float):
+        self.ms[name] = self.ms.get(name, 0.0) + ms
+
+
+class Job(NamedTuple):
+    """One dispatched batch: its reads, the copy of its device results in
+    flight to the host, its counters and its stage marks."""
+
+    metas: list
+    host: HostCopy
+    counts: dict
+    read_lens: np.ndarray
+    marks: list
+
+
+def overlap_s(a, b) -> float:
+    """Seconds in which two lists of sorted, disjoint (start, end) spans
+    overlap."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
 
 
 class Classifier:
@@ -96,12 +146,6 @@ class Classifier:
                 "no CUDA device: the kernels run only on one; pass "
                 "device='cpu' (--device cpu) for the plain PyTorch versions")
         self.par = params
-        if not params.device_tax:
-            raise not_ported("--device-tax 0 (the host taxonomer)", "item 8")
-        if params.print_log:
-            raise not_ported("--print-log (the host taxonomer)", "item 8")
-        if params.seq_mode == 3:
-            raise not_ported("--seq-mode 3 (long reads)", "item 10")
         t0 = time.perf_counter()
         self.index = MetamerIndex.load(db_dir)
         dbp = self.index.params
@@ -142,9 +186,22 @@ class Classifier:
             em=bool(params.em),
             reduced_aa=False,
             kmer_format=params.kmer_format,
+            print_log=bool(params.print_log),
         )
-        self.device_taxonomer = DeviceTaxonomer(
-            tp, self.taxonomy, self.device, threads=params.threads)
+        # --print-log dumps each species' match paths during combination
+        # (Taxonomer.cpp:346-353); only the Python taxonomer prints them,
+        # so it takes every read, as in the reference package
+        self.mode = ("log" if params.print_log else
+                     "device" if params.device_tax else "host")
+        self.taxonomer = self.device_taxonomer = self.native_taxonomer = None
+        if self.mode == "log":
+            self.taxonomer = Taxonomer(tp, self.taxonomy)
+        elif self.mode == "device":
+            self.device_taxonomer = DeviceTaxonomer(
+                tp, self.taxonomy, self.device, threads=params.threads)
+        elif self.mode == "host":
+            self.native_taxonomer = NativeTaxonomer(
+                tp, self.taxonomy, threads=params.threads)
         self.reporter = Reporter(self.taxonomy, bool(params.print_lineage))
 
         # Reference quirk kept for bit-identity (`KmerMatcher.cpp:363-406`):
@@ -158,8 +215,13 @@ class Classifier:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.load_s = time.perf_counter() - t0
+        # an automatic batch (--batch-reads 0) ends at batch_reads reads or
+        # batch_bases bases, to stay within batch_budget device bytes above
+        # the resident index
+        self.batch_bases = self.batch_budget = 0
         if params.batch_reads == 0:
-            params.batch_reads = self._auto_batch_reads()
+            (params.batch_reads, self.batch_bases,
+             self.batch_budget) = self._auto_batch()
         # cap = the DB's true max AA-group size: the fixed point of the
         # reference package's retry ladder, which starts at --max-cap and
         # grows the cap to max_group whenever a group was cut, so its
@@ -169,9 +231,12 @@ class Classifier:
         self.stats = {"matches": 0, "kmers": 0, "reads": 0,
                       "device_s": 0.0, "tax_s": 0.0}
 
-    def _auto_batch_reads(self) -> int:
-        """Reads per batch from free device memory (the QueryIndexer
-        byte-budget analogue, `QueryIndexer.cpp:24-28`)."""
+    def _auto_batch(self) -> tuple[int, int, int]:
+        """(reads, bases, bytes) per batch from free device memory (the
+        QueryIndexer byte-budget analogue, `QueryIndexer.cpp:24-28`): a
+        batch ends at whichever it reaches first, so long reads and
+        contigs are cut by bases at the bytes per base of a 150 bp read.
+        Reads are independent, so where a batch ends changes no output."""
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
         else:
@@ -180,14 +245,18 @@ class Classifier:
         b = 512
         while b * 2 * BATCH_BYTES_PER_READ <= avail // 2 and b < 16384:
             b *= 2
-        return b
+        budget = avail // 2
+        return b, budget * BATCH_READ_LEN // BATCH_BYTES_PER_READ, budget
 
     # ---------------------------------------------------------------- batches
     def _iter_batches(self, q1: str, q2: str | None, skip: int = 0):
-        """Yield (metas, rows), rows = [(seq, qid_local, pos_offset)]."""
-        batch_reads = self.par.batch_reads
+        """Yield (metas, rows), rows = [(seq, qid_local, pos_offset)]; a
+        batch holds ``batch_reads`` reads, or fewer where ``batch_bases``
+        (if set) would be passed (at least one read a batch)."""
+        batch_reads, batch_bases = self.par.batch_reads, self.batch_bases
         metas: list[QueryMeta] = []
         rows: list[tuple[bytes, int, int]] = []
+        bases = 0
         it1 = fasta.read_records(q1)
         it2 = fasta.read_records(q2) if q2 else None
         for _ in range(skip):
@@ -198,12 +267,16 @@ class Classifier:
             rec1 = next(it1, None)
             if rec1 is None:
                 break
+            rec2 = next(it2, None) if it2 is not None else None
+            if it2 is not None and rec2 is None:
+                raise ValueError("paired-end files have different read counts")
+            n = len(rec1.seq) + (len(rec2.seq) if rec2 is not None else 0)
+            if batch_bases and metas and bases + n > batch_bases:
+                yield metas, rows
+                metas, rows, bases = [], [], 0
+            bases += n
             qid = len(metas)
-            if it2 is not None:
-                rec2 = next(it2, None)
-                if rec2 is None:
-                    raise ValueError(
-                        "paired-end files have different read counts")
+            if rec2 is not None:
                 ul1, ul2 = _used_len(len(rec1.seq)), _used_len(len(rec2.seq))
                 metas.append(QueryMeta(rec1.name, ul1 + ul2))
                 rows.append((rec1.seq, qid, 0))
@@ -213,16 +286,26 @@ class Classifier:
                 rows.append((rec1.seq, qid, 0))
             if len(metas) >= batch_reads:
                 yield metas, rows
-                metas, rows = [], []
+                metas, rows, bases = [], [], 0
         if metas:
             yield metas, rows
 
     def classify_batch(self, metas, rows, plain: bool = False
                        ) -> list[ReadClassification]:
-        """One batch through the device stages and the host finish.
+        """One batch through the device stages and the host finish, on
+        this thread.
 
         ``plain=True`` runs the plain PyTorch versions of the four kernels
         instead of the kernels (the check of one against the other)."""
+        job = self._dispatch(metas, rows, plain=plain)
+        results, (t0, _, t2, _) = self._finish_batch(job)
+        self.stats["tax_s"] += t2 - t0
+        self.timer.resolve(job.marks)
+        return results
+
+    def _dispatch(self, metas, rows, plain: bool = False) -> Job:
+        """Encode and upload a batch, run its device stages and queue the
+        copy of their results to the host (main thread)."""
         par = self.par
         t0 = time.perf_counter()
         max_len = max((len(r[0]) for r in rows), default=0)
@@ -242,19 +325,65 @@ class Classifier:
         d_pos = as_dev([r[2] for r in rows], np.int32)
         d_qid = as_dev([r[1] for r in rows], np.int32)
         self.timer.mark("upload")
-        handle, counts = self.device_taxonomer.dispatch(
-            self.dev_index, self.d_species, d_codes, d_lens, d_pos, d_qid,
-            read_lens, cap=self.cap, syncmer=bool(par.syncmer),
-            smer_len=par.smer_len, plain=plain, timer=self.timer)
-        t1 = time.perf_counter()
-        results = self.device_taxonomer.drain(handle, read_lens, len(metas))
-        self.timer.mark("finish")
-        self.timer.stop()
-        self.stats["device_s"] += t1 - t0
-        self.stats["tax_s"] += time.perf_counter() - t1
+        core = dict(cap=self.cap, syncmer=bool(par.syncmer),
+                    smer_len=par.smer_len, plain=plain, timer=self.timer)
+        if self.mode == "device":
+            handle, counts = self.device_taxonomer.dispatch(
+                self.dev_index, self.d_species, d_codes, d_lens, d_pos,
+                d_qid, read_lens, **core)
+            host = self.device_taxonomer.start_drain(handle)
+        else:
+            m, counts = classify_core(self.dev_index, self.d_species,
+                                      d_codes, d_lens, d_pos, d_qid, **core)
+            host = to_host_async(m)
+        marks = self.timer.stop()
+        self.stats["device_s"] += time.perf_counter() - t0
         self.stats["kmers"] += counts["total_kmers"]
         self.stats["matches"] += counts["n_matches"]
-        return results
+        return Job(metas, host, counts, read_lens, marks)
+
+    def _finish_batch(self, job: Job):
+        """Wait for a batch's copy and finish its reads on the host (the
+        pipeline's worker; launches no CUDA work and changes no shared
+        state). Returns the results, the host clock at its start, at the
+        end of the wait and at the end of the taxonomer call, and this
+        thread's CPU seconds in that call."""
+        t0 = time.perf_counter()
+        cols = job.host.wait()
+        n_reads = len(job.metas)
+        t1 = time.perf_counter()
+        cpu = time.thread_time()
+        if self.mode == "device":
+            results = self.device_taxonomer.drain(job.host, job.read_lens,
+                                                  n_reads)
+        else:
+            results = self._assign(
+                matches_to_host(MatchColumns(*cols), job.counts),
+                job.read_lens)
+        return results, (t0, t1, time.perf_counter(),
+                         time.thread_time() - cpu)
+
+    def _assign(self, m: dict, read_lens: np.ndarray
+                ) -> list[ReadClassification]:
+        """The reference package's host taxonomer (``_assign_batch``):
+        per-read match ranges of the sorted rows, then the native
+        ``taxonomer_assign``, or (``--print-log``) the Python taxonomer
+        read by read."""
+        reads = np.arange(len(read_lens))
+        starts = np.searchsorted(m["qid"], reads, side="left")
+        ends = np.searchsorted(m["qid"], reads, side="right")
+        if self.mode == "host":
+            return self.native_taxonomer.assign_batch(m, starts, ends,
+                                                      read_lens)[0]
+        out = []
+        for lo, hi, rl in zip(starts.tolist(), ends.tolist(),
+                              read_lens.tolist()):
+            if lo == hi:
+                out.append(ReadClassification(score=0.0))
+                continue
+            sub = {k: m[k][lo:hi] for k in FIELDS}
+            out.append(self.taxonomer.choose_best_taxon(sub, rl))
+        return out
 
     def _emit_batch(self, fh, metas, results, tax_counts, total_reads,
                     first, mappings, all_results):
@@ -303,13 +432,54 @@ class Classifier:
             first = False
         mappings = [] if self.par.em else None
         all_results = [] if self.par.em else None
-        t_run = time.perf_counter()
-        with open(cls_path, "a" if skip else "w") as fh:
-            for metas, rows in self._iter_batches(q1, q2, skip=skip):
-                results = self.classify_batch(metas, rows)
-                total_reads, first = self._emit_batch(
-                    fh, metas, results, tax_counts, total_reads, first,
-                    mappings, all_results)
+        # host-clock spans: the worker's taxonomer calls, and the main
+        # thread's parse and dispatch of each batch
+        spans = {"finish": [], "busy": []}
+        finish_cpu = 0.0
+
+        def emit(job, results, clock):
+            nonlocal total_reads, first, finish_cpu
+            t0, t1, t2, cpu = clock
+            spans["finish"].append((t1, t2))
+            finish_cpu += cpu
+            self.stats["tax_s"] += t2 - t0
+            self.timer.resolve(job.marks)
+            self.timer.add("finish", (t2 - t1) * 1e3)
+            total_reads, first = self._emit_batch(
+                fh, job.metas, results, tax_counts, total_reads, first,
+                mappings, all_results)
+
+        # depth-2 pipeline: the worker finishes batch i while this thread
+        # dispatches batch i+1. --print-log stays serial: its Python
+        # taxonomer holds the interpreter lock throughout and prints, so a
+        # worker would overlap nothing and could interleave its lines.
+        pool = (None if self.mode == "log" else
+                ThreadPoolExecutor(1, thread_name_prefix="metabuli-finish"))
+        t_run, cpu_run = time.perf_counter(), time.thread_time()
+        try:
+            with open(cls_path, "a" if skip else "w") as fh:
+                batches = self._iter_batches(q1, q2, skip=skip)
+                inflight = None
+                while True:
+                    t0 = time.perf_counter()
+                    nxt = next(batches, None)
+                    job = fut = None
+                    if nxt is not None:
+                        job = self._dispatch(*nxt)
+                    spans["busy"].append((t0, time.perf_counter()))
+                    if job is not None:
+                        if pool is None:
+                            emit(job, *self._finish_batch(job))
+                            continue
+                        fut = pool.submit(self._finish_batch, job)
+                    if inflight is not None:
+                        emit(inflight[0], *inflight[1].result())
+                    if nxt is None:
+                        break
+                    inflight = (job, fut)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
 
         with open(report_path, "w") as fh:
             self.reporter.write_report(fh, tax_counts, total_reads)
@@ -321,6 +491,7 @@ class Classifier:
             self.reporter.write_krona(fh, tax_counts, total_reads,
                                       prelude=prelude)
 
+        finish_s = sum(b - a for a, b in spans["finish"])
         summary = {
             "reads": total_reads - skip,
             "classified": total_reads - tax_counts.get(0, 0),
@@ -329,6 +500,16 @@ class Classifier:
             "load_s": self.load_s,
             "classify_s": time.perf_counter() - t_run,
             "stage_ms": self.timer.ms,
+            # the taxonomer calls (host clock), their part during which
+            # this thread parsed or dispatched another batch, and the CPU
+            # seconds of the thread that made them (their OpenMP helpers
+            # not counted) and of this thread over the run: the two threads
+            # share one interpreter lock, so a finish that waits for it
+            # runs its clock past its CPU seconds
+            "finish_s": finish_s,
+            "finish_overlap_s": overlap_s(spans["finish"], spans["busy"]),
+            "finish_cpu_s": finish_cpu,
+            "main_cpu_s": time.thread_time() - cpu_run,
         }
         if self.par.em and total_reads:
             from .em import run_em_reassignment

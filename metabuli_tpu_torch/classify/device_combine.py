@@ -66,7 +66,13 @@ def combine_trims_plain(sp: FlatPaths, group_start: torch.Tensor,
                         read_lens: torch.Tensor):
     """``combine_paths_plain``'s scores, and the number of (path, side)
     pairs trimmed at least once: the boundary-codon words (``sh16`` or
-    ``eh16``) the greedy must read, which a bound on K4's bytes counts."""
+    ``eh16``) the greedy must read, which a bound on K4's bytes counts.
+
+    For path rank p, the accepted extents of its group that meet the
+    path's own extent are taken in the order they were accepted: a trim
+    only shrinks the path, so an extent it does not meet never matters,
+    and the loop runs over the most such extents of any group (a few),
+    not over every accepted one (hundreds in a long read's groups)."""
     dev = sp.read.device
     G = group_start.numel() - 1
     n_trimmed = torch.zeros((), dtype=torch.int64, device=dev)
@@ -82,6 +88,8 @@ def combine_trims_plain(sp: FlatPaths, group_start: torch.Tensor,
     last = sp.read.numel() - 1
     left_tab = _part_table(sp.sh16, False)
     right_tab = _part_table(sp.eh16, True)
+    slots = torch.arange(P, device=dev)[:, None]
+    n_acc = 0  # the most any group has accepted
     for p in range(P):
         occ = p < run
         r = torch.clamp(gs + p, max=last)
@@ -89,10 +97,17 @@ def combine_trims_plain(sp: FlatPaths, group_start: torch.Tensor,
         left, right_part = left_tab[r], right_tab[r]
         rejected = ~occ
         trim_left = trim_right = torch.zeros_like(occ)
-        # slots past the most any group has accepted change nothing
-        for j in range(int(acc_n.max())):
-            has_j = j < acc_n
-            a_s, a_e = acc_start[j], acc_end[j]
+        # the accepted extents that meet the path, in accepted order
+        a_s_all, a_e_all = acc_start[:n_acc], acc_end[:n_acc]
+        meet = (occ & (slots[:n_acc] < acc_n) & (end >= a_s_all)
+                & (a_e_all >= start))
+        n_meet = meet.sum(0)
+        K = int(n_meet.max()) if n_acc else 0
+        first = torch.argsort((~meet).to(torch.int8), dim=0, stable=True)[:K]
+        for k in range(K):
+            has_j = k < n_meet
+            a_s = a_s_all.gather(0, first[k:k + 1])[0]
+            a_e = a_e_all.gather(0, first[k:k + 1])[0]
             disjoint = (end < a_s) | (a_e < start)
             ov = torch.minimum(end, a_e) - torch.maximum(start, a_s) + 1
             full = ov == end - start + 1
@@ -117,6 +132,7 @@ def combine_trims_plain(sp: FlatPaths, group_start: torch.Tensor,
         acc_start[acc_n[at], at] = start[at]
         acc_end[acc_n[at], at] = end[at]
         acc_n = acc_n + accept.to(torch.int64)
+        n_acc = min(n_acc + 1, P) if at.numel() else n_acc
         total = total + torch.where(accept, score, 0.0)
     rl = read_lens[torch.clamp(sp.read[gs].to(torch.int64), 0,
                                read_lens.numel() - 1)]

@@ -25,7 +25,8 @@ from .device_combine import combine_paths, combine_paths_plain, sort_paths
 from .device_compact import compact_groups, compact_paths
 from .device_redundancy import device_taxonomy, quotient_best
 from .native_taxonomer import NativeTaxonomer
-from .pipeline import MatchColumns, classify_core, sort_by_keys
+from .pipeline import (HostCopy, MatchColumns, classify_core, sort_by_keys,
+                       to_host_async)
 from .taxonomer import ReadClassification, TaxonomerParams
 
 
@@ -119,17 +120,23 @@ class DeviceTaxonomer:
             plain=plain, timer=timer)
         return (groups, taxcnt), counts
 
-    def drain(self, handle, read_lens_by_qid: np.ndarray, n_reads: int):
-        """Fetch the small group/taxcount tensors and finish on the host."""
+    def start_drain(self, handle) -> HostCopy:
+        """End a batch's dispatch: queue the copies of the small group and
+        taxcount tensors to pinned host memory (``to_host_async``)."""
         groups, taxcnt = handle
-        g = [t.cpu().numpy() for t in groups]
-        tc = [t.cpu().numpy() for t in taxcnt]
+        return to_host_async([*groups, *taxcnt])
+
+    def drain(self, host: HostCopy, read_lens_by_qid: np.ndarray,
+              n_reads: int):
+        """Wait for a ``start_drain`` copy and finish the batch on the
+        host; launches no CUDA work, so it may run on a worker thread
+        beside the next batch's dispatch."""
+        g = [t.numpy() for t in host.wait()]
         results = [ReadClassification() for _ in range(n_reads)]
         if len(g[0]) == 0:
             return results
-        return self._finish(g[0], g[1], g[2].astype(np.float32), tc[0],
-                            tc[1], tc[2], tc[3], read_lens_by_qid, n_reads,
-                            results)
+        return self._finish(g[0], g[1], g[2].astype(np.float32), *g[3:],
+                            read_lens_by_qid, n_reads, results)
 
     def _finish(self, g_read, g_sp, g_score, run_read, run_sp, run_tax,
                 run_cnt, read_lens_by_qid, n_reads, results):

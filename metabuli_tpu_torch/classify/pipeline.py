@@ -20,6 +20,11 @@ hamming, dna) (`KmerMatcher.cpp:1149-1166`).
 
 Every stage is sized exactly from a count read back from the device, so
 none of the reference package's caps, budgets or retry ladder exist here.
+
+A batch's results go to the host through ``to_host_async`` (pinned
+buffers and a CUDA event, waited on by the classifier's worker thread);
+``matches_to_host`` turns sorted match columns there into the reference
+package's host match dict.
 """
 
 from __future__ import annotations
@@ -400,3 +405,58 @@ def classify_core(index: DevIndex, tax2species: torch.Tensor,
         "total_kmers": int(mm.valid.sum()),
     }
     return MatchColumns(*cols), counts
+
+
+# the reference package's host match fields (``pipeline.FIELDS`` there)
+FIELDS = ("qid", "species", "frame", "pos", "hamming", "dna", "taxid", "h16")
+
+
+def matches_to_host(m: MatchColumns, counts: dict) -> dict:
+    """Sorted match columns on the host -> the reference package's host
+    match dict (``matches_to_host`` / ``_unpack_match_data`` for its
+    5-word layout): ``FIELDS`` as int32 numpy arrays, frame, hamming and
+    h16 unpacked from ``packed``, plus the counters. The rows are in the
+    reference order already (the device sort equals its lexsort), so the
+    dict is marked ``sorted``."""
+    col = lambda t: t.numpy().astype(np.int32, copy=False)
+    packed = col(m.packed)
+    out = {"qid": col(m.qid), "species": col(m.species),
+           "frame": packed & 7, "pos": col(m.pos),
+           "hamming": (packed >> 3) & 0xFF, "dna": col(m.dna),
+           "taxid": col(m.taxid), "h16": (packed >> 11) & 0xFFFF}
+    out.update(n_matches=len(packed), n_over_cap=counts["n_over_cap"],
+               total_kmers=counts["total_kmers"], sorted=True)
+    return out
+
+
+# ------------------------------------------------------------ to the host
+class HostCopy(NamedTuple):
+    """Host tensors whose copy from the device may still be in flight."""
+
+    tensors: list
+    event: object  # torch.cuda.Event recorded after the copies, or None
+
+    def wait(self) -> list:
+        """The tensors, once their copies are done: blocks on the event
+        alone (the copies were queued on the dispatching stream, so a
+        ``.cpu()`` here would wait behind that stream's later kernels)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.tensors
+
+
+def to_host_async(tensors) -> HostCopy:
+    """Copies of device tensors in pinned host memory, queued with
+    ``non_blocking=True`` on the current stream, and a CUDA event recorded
+    after them. CPU tensors come back as they are."""
+    tensors = list(tensors)
+    if not tensors or tensors[0].device.type != "cuda":
+        return HostCopy(tensors, None)
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return HostCopy(host, event)

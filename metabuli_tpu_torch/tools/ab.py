@@ -10,9 +10,17 @@ flags default to chip_smoke.py's classify phase (``--seq-mode 1
 --batch-reads 8192``). Each checkout's kernels and native library are built
 before its first run, so no run times a build. Prints one JSON line per
 run: the pair, the side, reads/s, classify_s, classified reads, stage_ms,
-and the host seconds of the batches' drain (D2H copies and the native
-finish; ``drain_s``) and of the native finish alone (``finish_s``), timed
-around ``DeviceTaxonomer.drain`` and ``DeviceTaxonomer._finish``.
+and the host seconds of the batches' drain (``drain_s``: the wait for
+the copies to the host and the native finish; on a serial loop the
+copies themselves) and of the native finish alone (``finish_s``), timed
+around ``DeviceTaxonomer.drain`` and ``DeviceTaxonomer._finish``, and,
+where the classifier reports them (the batch pipeline), the seconds of
+the finish during which the main thread parsed or dispatched another
+batch (``overlap_s``) and the finishing thread's CPU seconds in it
+(``finish_cpu_s``); null otherwise.
+
+Both sides' DB and reads may come from
+``python -m metabuli_tpu_torch.tools.world DIR`` (chip_smoke.py's).
 """
 
 from __future__ import annotations
@@ -61,7 +69,9 @@ def child(checkout: str, argv) -> None:
     print(json.dumps({"reads_per_s": s["reads"] / s["classify_s"],
                       "classify_s": s["classify_s"],
                       "classified": s["classified"],
-                      "stage_ms": s["stage_ms"], **host}))
+                      "stage_ms": s["stage_ms"], **host,
+                      "overlap_s": s.get("finish_overlap_s"),
+                      "finish_cpu_s": s.get("finish_cpu_s")}))
 
 
 def _run(cmd, cwd: str) -> str:

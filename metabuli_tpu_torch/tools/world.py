@@ -1,14 +1,25 @@
-"""The smoke world: synthetic genomes, a taxonomy and sampled reads.
+"""The smoke worlds: synthetic genomes, a taxonomy, sampled reads and a
+metamer DB of them.
 
-The port's own copy of the world and read sampler of the repository's
-benchmark script (``bench.py``): the adversarial "skew" world and
-``sample_reads`` draw from the generator in the same order, so one seed
-gives the same genomes and reads in both packages.
+The port's own copy of the worlds and read sampler of the repository's
+benchmark script (``bench.py``): the adversarial "skew" world, the
+"uniform" world of its ``longread`` configuration and ``sample_reads``
+draw from the generator in the same order, so one seed gives the same
+genomes and reads in both packages.
+
+    python -m metabuli_tpu_torch.tools.world OUT
+
+writes ``chip_smoke.py``'s smoke DB and reads on the card: the skew
+world from seed 0, its metamer DB padded to 2^28 rows (``OUT/db``,
+``build_db``) and 65,536 reads of 150 bases (``OUT/reads.fq``).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import sys
+import time
 
 import numpy as np
 
@@ -21,6 +32,11 @@ ACGT = np.frombuffer(b"ACGT", np.uint8)
 # rate adds nonsynonymous realism
 SKEW = dict(clades=2, per_clade=192, core_len=6_000, unique_len=94_000,
             divergence=0.002, wobble=0.2)
+# independent random genomes: 4 genera x 2 species of 200 kb, no core, so
+# AA groups stay ~1-2 rows deep (bench.py's longread configuration)
+UNIFORM = dict(clades=4, per_clade=2, core_len=0, unique_len=200_000,
+               divergence=0.0, wobble=0.0)
+WORLDS = {"skew": SKEW, "uniform": UNIFORM}
 
 
 def _substitute(out: np.ndarray, pos: np.ndarray, rng) -> None:
@@ -58,38 +74,43 @@ def write_taxonomy(d: str, nodes, names) -> None:
     open(os.path.join(d, "merged.dmp"), "w").close()
 
 
-def skew_genomes(rng):
-    """(nodes, names, [(genome bytes, species taxid)]) of the skew world,
-    drawn from ``rng``: 2 genera of 192 species, each a wobble-diverged
-    copy of its genus's core followed by a unique tail."""
+def world_genomes(spec: dict, rng):
+    """(nodes, names, [(genome bytes, species taxid)]) of a world, drawn
+    from ``rng``: ``clades`` genera of ``per_clade`` species, each a
+    wobble-diverged copy of its genus's core (if ``core_len``) followed by
+    a unique tail."""
     nodes = [(1, 1, "no rank"), (2, 1, "superkingdom")]
     names = {1: "root", 2: "Bacteria"}
     tid, species = 3, []
-    for g in range(SKEW["clades"]):
+    for g in range(spec["clades"]):
         gid = tid
         nodes.append((tid, 2, "genus")); names[tid] = f"G{g}"; tid += 1
-        for s in range(SKEW["per_clade"]):
+        for s in range(spec["per_clade"]):
             nodes.append((tid, gid, "species")); names[tid] = f"S{g}_{s}"
             species.append((tid, g)); tid += 1
-    cores = [rng.choice(ACGT, SKEW["core_len"])
-             for _ in range(SKEW["clades"])]
+    cores = [rng.choice(ACGT, spec["core_len"])
+             for _ in range(spec["clades"])] if spec["core_len"] else None
     genomes = []
     for sp, clade in species:
-        uniq = rng.choice(ACGT, SKEW["unique_len"])
-        core = _mutate(cores[clade], SKEW["divergence"], SKEW["wobble"], rng)
+        uniq = rng.choice(ACGT, spec["unique_len"])
+        if cores is None:
+            genomes.append((bytes(uniq), sp))
+            continue
+        core = _mutate(cores[clade], spec["divergence"], spec["wobble"], rng)
         genomes.append((bytes(np.concatenate([core, uniq])), sp))
     return nodes, names, genomes
 
 
-def skew_world(tmp: str, seed: int = 0):
-    """(taxonomy, [(genome, species taxid)], rng): the skew world from
-    ``seed``, its taxonomy written under ``tmp/skew_taxonomy``; ``rng`` is
-    left where the reads are drawn next."""
+def make_world(tmp: str, name: str = "skew", seed: int = 0):
+    """(taxonomy, [(genome, species taxid)], rng): world ``name`` of
+    ``WORLDS`` from ``seed``, its taxonomy written under
+    ``tmp/<name>_taxonomy``; ``rng`` is left where the reads are drawn
+    next."""
     from ..db.taxonomy import Taxonomy
 
     rng = np.random.default_rng(seed)
-    nodes, names, genomes = skew_genomes(rng)
-    d = os.path.join(tmp, "skew_taxonomy")
+    nodes, names, genomes = world_genomes(WORLDS[name], rng)
+    d = os.path.join(tmp, f"{name}_taxonomy")
     write_taxonomy(d, nodes, names)
     tax = Taxonomy.from_dmp(*(os.path.join(d, f) for f in
                               ("names.dmp", "nodes.dmp", "merged.dmp")))
@@ -169,3 +190,125 @@ def sample_reads(genomes, rng, n_reads: int, read_len: int, max_mut: int):
                 bytes(read).translate(bytes.maketrans(b"ACGT", b"TGCA"))[::-1])
         reads.append(bytes(read))
     return reads
+
+
+def write_fastq(path: str, reads) -> None:
+    with open(path, "w") as fh:
+        for i, r in enumerate(reads):
+            fh.write(f"@r{i}\n{r.decode()}\n+\n{'I' * len(r)}\n")
+
+
+DB_CHUNK = 64  # genomes per K1 launch of build_db
+
+
+def build_db(db_dir: str, tax, genomes, device, rows: int = 0,
+             never_match: bool = False) -> dict:
+    """Metamer DB of species-level genomes: 6-frame metamers of every
+    window (K1, DB_CHUNK genomes a launch), unique per (value, species)
+    (each genome is its own species, so the LCA taxid is that species),
+    optionally padded with decoy rows to ``rows``.
+
+    The decoys are bench.py's: uniform 40-bit AA keys (colliding keys
+    dropped, so every genome-derived group stays as it is), uniform
+    codons, taxids drawn from the real species. A uniform key has every
+    5-bit residue below 21 (a residue a read can translate to) 3.4 % of
+    the time, so a read's k-mer may meet a decoy. ``never_match`` sets
+    each decoy's first residue to 31, which no codon translates to: no
+    query meets a decoy, and the table's last row (which the classifier
+    leaves out of its search) is a decoy, so any number of decoys gives
+    the classifications of the genome-derived rows alone."""
+    import torch
+
+    from ..db.formats import DbParameters
+    from ..db.index import MetamerIndex
+    from ..ops import encode
+    from ..ops.encode import srl
+    from ..ops.genetic_code import encode_seqs_padded
+
+    t0 = time.perf_counter()
+    sp_int = [tax.to_internal(sp) for _, sp in genomes]
+    assert all(int(tax.species_of[t]) == t for t in sp_int)
+    vals, taxs = [], []
+    for i in range(0, len(genomes), DB_CHUNK):
+        chunk = genomes[i:i + DB_CHUNK]
+        codes, lens = encode_seqs_padded([g for g, _ in chunk])
+        mm = encode.extract_metamers(torch.from_numpy(codes).to(device),
+                                     torch.from_numpy(lens).to(device))
+        t = torch.tensor(sp_int[i:i + DB_CHUNK], dtype=torch.int64,
+                         device=device)
+        vals.append(mm.value[mm.valid])
+        taxs.append(t[:, None, None].expand(mm.valid.shape)[mm.valid])
+        del mm
+    v = torch.cat(vals)
+    t = torch.cat(taxs)
+    del vals, taxs
+    flip = -(1 << 63)  # signed order of v ^ 2^63 == unsigned order of v
+
+    def sort_vt(v, t):
+        o = torch.sort(t, stable=True)[1]
+        o = o[torch.sort(v[o] ^ flip, stable=True)[1]]
+        return v[o], t[o]
+
+    v, t = sort_vt(v, t)
+    keep = torch.ones(v.numel(), dtype=torch.bool, device=device)
+    keep[1:] = (v[1:] != v[:-1]) | (t[1:] != t[:-1])
+    v, t = v[keep], t[keep]
+    n_real = int(v.numel())
+    n_decoys = max(0, rows - n_real) if rows else 0
+    if n_decoys:
+        # a 0.1 % surplus of draws makes up for the dropped keys so the
+        # table has exactly `rows`
+        rng = np.random.default_rng(12345)
+        n_draw = n_decoys + n_decoys // 1000 + 1024
+        aa = torch.from_numpy(rng.integers(0, 1 << 40, size=n_draw,
+                                           dtype=np.uint64).view(np.int64))
+        aa = aa.to(device)
+        if never_match:
+            aa |= 31 << 35
+        aa = aa[~torch.isin(aa, torch.unique(srl(v, 24)))][:n_decoys]
+        dna = torch.from_numpy(rng.integers(0, 1 << 24, size=aa.numel(),
+                                            dtype=np.int64)).to(device)
+        species = np.unique(np.asarray(sp_int, np.int64))
+        dt = torch.from_numpy(rng.choice(species, size=aa.numel())).to(device)
+        v, t = sort_vt(torch.cat([v, (aa << 24) | dna]), torch.cat([t, dt]))
+        del aa, dna, dt
+    values = v.cpu().numpy().view(np.uint64)
+    taxids = t.to(torch.int32).cpu().numpy().view(np.uint32)
+    del v, t, keep
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    aa = values >> np.uint64(24)
+    change = np.nonzero(aa[1:] != aa[:-1])[0]
+    bounds = np.concatenate([[-1], change, [len(aa) - 1]])
+    max_group = int(np.diff(bounds).max())
+    del aa, change, bounds
+    MetamerIndex(values=values, taxids=taxids, taxonomy=tax,
+                 params=DbParameters(db_name="smoke", skip_redundancy=1),
+                 max_group=max_group).save(db_dir)
+    return {"rows": len(values), "genome_rows": n_real,
+            "decoy_rows": len(values) - n_real, "max_group": max_group,
+            "build_s": round(t1 - t0, 3),
+            "write_s": round(time.perf_counter() - t1, 3)}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(prog="metabuli_tpu_torch.tools.world")
+    ap.add_argument("out")
+    out = ap.parse_args(argv).out
+    os.makedirs(out, exist_ok=True)
+    tax, genomes, rng = make_world(out, "skew")
+    info = build_db(os.path.join(out, "db"), tax, genomes,
+                    torch.device("cuda"), rows=1 << 28)
+    write_fastq(os.path.join(out, "reads.fq"),
+                sample_reads(genomes, rng, 65_536, 150, max_mut=2))
+    print(json.dumps(info))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

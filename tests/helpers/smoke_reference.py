@@ -1,9 +1,10 @@
-"""Reference digests of chip_smoke.py's build phase, from the JAX package
-on the CPU.
+"""Reference digests of chip_smoke.py's dbbuild and longread phases, from
+the JAX package on the CPU.
 
-    JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py [--port]
+    JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py \
+        [dbbuild] [longread] [--port]
 
-Builds the skew world of ``metabuli_tpu_torch.tools.world`` (seed 0, 384
+(both phases when none is named). dbbuild: builds the skew world of ``metabuli_tpu_torch.tools.world`` (seed 0, 384
 species of 100 kb, one FASTA file per genus) with ``metabuli_tpu``'s
 ``build_database`` at the defaults (gene prediction and masking on),
 adds the 16-genome genus of ``world.new_genus`` with ``update_database``
@@ -12,8 +13,14 @@ the updated DB, 8,192 a batch. Prints one JSON line: the sha256 of
 diffIdx + info + taxID_list of both DBs, the digest of the blocks each
 handed to extraction (in the port's ``IndexBuilder`` order and layout),
 the classified count and the sha256 of the classifications file. These
-are the constants of ``chip_smoke.py``. ``--port`` runs the same steps
-through ``metabuli_tpu_torch`` on the CPU as well and prints its line.
+are the constants of ``chip_smoke.py``. longread: the uniform world of
+``world.make_world`` (seed 0, 8 x 200 kb), the genome-derived rows of
+chip_smoke.py's long-read DB (``world.build_db`` with 1,024 of its
+never-matching decoys in place of the card's 60 M, so the last row is a
+decoy there too) and its 8,192 reads of 3,000 bases (max_mut 30),
+classified with ``--seq-mode 3``, 1,024 a batch: the classified count and
+the classifications' sha256. ``--port`` runs the same steps through
+``metabuli_tpu_torch`` on the CPU as well and prints its line.
 """
 
 import hashlib
@@ -137,11 +144,77 @@ def port_run(tmp, lib, acc, taxdir, new, fq) -> dict:
     return out
 
 
+LONGREAD = dict(reads=8192, read_len=3000, max_mut=30, batch=1024)
+
+
+def longread_inputs(tmp):
+    """(DB dir, FASTQ) of the longread phase, the DB on the CPU."""
+    import torch
+
+    from metabuli_tpu_torch.tools import world
+
+    tax, genomes, rng = world.make_world(tmp, "uniform")
+    cpu = torch.device("cpu")
+    n = world.build_db(os.path.join(tmp, "lr_genome_db"), tax, genomes,
+                       cpu)["genome_rows"]
+    db = os.path.join(tmp, "lr_db")
+    world.build_db(db, tax, genomes, cpu, rows=n + 1024, never_match=True)
+    reads = world.sample_reads(genomes, rng, LONGREAD["reads"],
+                               LONGREAD["read_len"], LONGREAD["max_mut"])
+    fq = os.path.join(tmp, "long.fq")
+    write_fastq(fq, reads)
+    return db, fq
+
+
+def longread_run(tmp, db, fq, port: bool) -> dict:
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "port_lr" if port else "jax_lr")
+    if port:
+        import contextlib
+        import io
+
+        from metabuli_tpu_torch.cli import main as cli
+
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            assert cli(["classify", fq, db, out, "long", "--seq-mode", "3",
+                        "--batch-reads", str(LONGREAD["batch"]),
+                        "--device", "cpu"]) == 0
+        s = json.loads(buf.getvalue().strip().splitlines()[-1])
+    else:
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+        from metabuli_tpu.classify.classifier import Classifier
+        from metabuli_tpu.params import ClassifyParams
+
+        s = Classifier(db, ClassifyParams(
+            seq_mode=3, batch_reads=LONGREAD["batch"])).classify_file(
+                fq, None, out, "long")
+    return {"classified": s["classified"],
+            "sha256": file_sha256(os.path.join(out,
+                                               "long_classifications.tsv")),
+            "s": time.perf_counter() - t0}
+
+
 def main() -> int:
     from metabuli_tpu_torch.tools import world
 
+    args = sys.argv[1:]
+    phases = [a for a in args if not a.startswith("-")] or ["dbbuild",
+                                                            "longread"]
+    port = "--port" in args
+    if "longread" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            db, fq = longread_inputs(tmp)
+            print(json.dumps({"jax": {"longread": longread_run(
+                tmp, db, fq, False)}}), flush=True)
+            if port:
+                print(json.dumps({"port": {"longread": longread_run(
+                    tmp, db, fq, True)}}), flush=True)
+    if "dbbuild" not in phases:
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
-        tax, genomes, rng = world.skew_world(tmp)
+        tax, genomes, rng = world.make_world(tmp, "skew")
         lib, acc = world.write_library(os.path.join(tmp, "lib"), genomes,
                                        world.genus_of(tax, genomes))
         new = world.new_genus(os.path.join(tmp, "new"), tax)
@@ -151,7 +224,7 @@ def main() -> int:
         taxdir = os.path.join(tmp, "skew_taxonomy")
         print(json.dumps({"jax": jax_run(tmp, lib, acc, taxdir, new, fq)}),
               flush=True)
-        if "--port" in sys.argv[1:]:
+        if port:
             print(json.dumps({"port": port_run(tmp, lib, acc, taxdir, new,
                                                fq)}), flush=True)
     return 0

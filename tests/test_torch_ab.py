@@ -10,7 +10,6 @@ import os
 import numpy as np
 import torch
 
-import chip_smoke
 from metabuli_tpu_torch.db.taxonomy import Taxonomy
 from metabuli_tpu_torch.tools import ab, world
 
@@ -26,8 +25,8 @@ def test_ab_alternates_checkouts_and_reports_each_run(tmp_path, monkeypatch,
     tax = Taxonomy.from_dmp(*(os.path.join(tdir, f) for f in
                               ("names.dmp", "nodes.dmp", "merged.dmp")))
     db, reads = str(tmp_path / "db"), str(tmp_path / "reads.fq")
-    chip_smoke.build_db(db, tax, [(g1, 4), (g2, 8)], torch.device("cpu"))
-    chip_smoke.write_fastq(reads, [g[i * 160:i * 160 + 150]
+    world.build_db(db, tax, [(g1, 4), (g2, 8)], torch.device("cpu"))
+    world.write_fastq(reads, [g[i * 160:i * 160 + 150]
                                    for g in (g1, g2) for i in range(60)])
     monkeypatch.setattr(ab, "BUILD", "pass")  # CPU runs need no kernels
     root = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -41,3 +40,4 @@ def test_ab_alternates_checkouts_and_reports_each_run(tmp_path, monkeypatch,
         assert r["classified"] == 120 and r["reads_per_s"] > 0
         assert r["drain_s"] >= r["finish_s"] > 0
         assert {"upload", "extract", "finish"} <= set(r["stage_ms"])
+        assert 0 <= r["overlap_s"] <= r["classify_s"]

@@ -94,7 +94,7 @@ def test_port_build_gives_golden_db_and_classifications(tmp_path, syncmer):
 def _skew_library(tmp, n_species, extra=()):
     """The first ``n_species`` of the skew world (100 kb each), plus
     ``extra`` [(genome, species taxid of the world)], as a library."""
-    tax, genomes, _ = world.skew_world(str(tmp))
+    tax, genomes, _ = world.make_world(str(tmp), "skew")
     genomes = genomes[:n_species] + list(extra)
     lib, acc = world.write_library(os.path.join(tmp, "lib"), genomes,
                                    world.genus_of(tax, genomes))

@@ -1,7 +1,9 @@
 """Port end to end on the CPU: the golden world of tests/test_golden.py,
 built by the JAX package's ``build_database`` and classified through the
 port's CLI, gives the committed classifications and reports byte for
-byte; paths the port does not have raise ``NotImplementedError``."""
+byte; paths the port does not have raise ``NotImplementedError``
+(``tests/test_torch_slice7.py`` holds the host taxonomer, long reads and
+the batch pipeline)."""
 
 import os
 import pathlib
@@ -129,9 +131,7 @@ def golden_s0(tmp_path_factory):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--device-tax", "0"], "item 8"),
     (["--reduced-aa", "1"], "item 9"),
-    (["--seq-mode", "3"], "item 10"),
     (["--max-ram", "0"], "item 7"),
 ])
 def test_port_raises_for_paths_not_ported(tmp_path, golden_s0, flags,

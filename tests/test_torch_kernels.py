@@ -577,3 +577,87 @@ def test_k1_single_frame_rows_with_padding_rows_match_plain():
         b.add_sequences(tasks)
         out[dev] = np.concatenate(b._values)
     assert np.array_equal(out["cuda"], out["cpu"]) and len(out["cpu"]) > 0
+
+
+def _wobble(seq, rate, rng):
+    c = seq.copy()
+    w = np.arange(2, len(c), 3)
+    m = w[rng.random(len(w)) < rate]
+    c[m] = ACGT[(np.searchsorted(ACGT, c[m]) + rng.integers(1, 4, len(m))) % 4]
+    return c
+
+
+def _long_read_columns(syncmer, smer_len, dev):
+    """Sorted match columns of 8 reads of 4,500 bases (45 substitutions
+    each) against 4 species that each hold 6 wobble-diverged copies of
+    one 5 kb core and 3 kb of their own; half the reads come from a fresh
+    copy of the core. A read meets several copies of a species at one
+    position, so (read, species, frame) blocks run to ~1,600 rows of
+    quotient groups up to 6 rows wide, and a (read, species) group holds
+    hundreds of paths."""
+    rng = np.random.default_rng(10)
+    core = rng.choice(ACGT, 5000)
+    genomes = [np.concatenate([_wobble(core, 0.1, rng) for _ in range(6)]
+                              + [rng.choice(ACGT, 3000)]) for _ in range(4)]
+    codes, lens = encode_seqs_padded([bytes(g) for g in genomes])
+    kw = dict(syncmer=syncmer, smer_len=smer_len)
+    mm = encode.extract_metamers_plain(torch.from_numpy(codes),
+                                       torch.from_numpy(lens), **kw)
+    vals, taxs = [], []
+    for g in range(len(genomes)):
+        v = np.unique(mm.value[g][mm.valid[g]].numpy().view(np.uint64))
+        vals.append(v)
+        taxs.append(np.full(len(v), 3 + g, np.int32))
+    values, taxids = np.concatenate(vals), np.concatenate(taxs)
+    o = np.argsort(values, kind="stable")
+    reads = []
+    for i in range(8):
+        src = _wobble(core, 0.1, rng) if i % 2 == 0 else genomes[i % 4]
+        st = int(rng.integers(0, len(src) - 4500))
+        r = bytearray(bytes(src[st:st + 4500]))
+        for _ in range(45):
+            r[int(rng.integers(0, 4500))] = ACGT[int(rng.integers(0, 4))]
+        reads.append(bytes(r))
+    index = build_dev_index(values[o], taxids[o], device=dev)
+    t2s = torch.arange(64, dtype=torch.int32, device=dev)
+    m, _ = classify_core(index, t2s, *_batch(reads, dev), cap=4096, **kw)
+    return m
+
+
+@pytest.mark.parametrize("syncmer,smer_len", [(False, 5), (True, 7),
+                                              (True, 6), (True, 5)])
+def test_k3_k4_long_read_columns_match_plain(syncmer, smer_len):
+    """K3 and K4 on long-read columns, with the codon shifts of syncmers
+    (max_shift 8 - smer_len: 1 to 3): blocks of 800-1,600 rows holding
+    quotient groups of up to 6 rows, and groups of 200+ paths; each
+    kernel launches once."""
+    dev = "cuda"
+    m = _long_read_columns(syncmer, smer_len, dev)
+    frame = m.packed & 7
+    ham = (m.packed >> 3) & 0xFF
+    h16 = (m.packed >> 11) & 0xFFFF
+    block = (m.qid.long() << 40) | (m.species.long() << 8) | frame.long()
+    group = (block << 16) | torch.div(m.pos, 3, rounding_mode="floor").long()
+    rows = lambda k: int(torch.unique_consecutive(
+        k, return_counts=True)[1].max())
+    assert rows(block) >= 800 and rows(group) >= 5
+    min_depth = torch.full((64,), 4, dtype=torch.int32, device=dev)
+    args = (m.qid, m.species, frame, m.pos, ham, m.dna, h16, min_depth)
+    kw = dict(max_shift=8 - smer_len if syncmer else 1)
+    before = build.launches["chain_matches"]
+    got = device_chain.chain_matches(*args, **kw)
+    assert build.launches["chain_matches"] == before + 1
+    want = device_chain.chain_matches_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    paths, gstart = device_combine.sort_paths(
+        compact_paths(got, m.qid, m.species, m.pos, h16))
+    assert int((gstart[1:] - gstart[:-1]).max()) >= 200
+    rl = torch.full((8,), 4497, dtype=torch.int32, device=dev)
+    before = build.launches["combine_paths"]
+    s_got = device_combine.combine_paths(paths, gstart, rl)
+    assert build.launches["combine_paths"] == before + 1
+    s_want = device_combine.combine_paths_plain(paths, gstart, rl)
+    torch.cuda.synchronize()
+    _eq([s_got], [s_want])
+    assert float(s_got.max()) > 0.5

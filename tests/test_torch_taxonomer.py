@@ -239,7 +239,7 @@ def test_tail_where_jax_grid_overflows_equals_python(tmp_path):
     tp = TaxonomerParams()
     dtax = DeviceTaxonomer(tp, tax)
     groups, taxcnt = _port_tail(tax, m, read_lens)
-    got = dtax.drain((groups, taxcnt), read_lens, n_reads)
+    got = dtax.drain(dtax.start_drain((groups, taxcnt)), read_lens, n_reads)
     py = Taxonomer(tp, tax)
     fields = ("qid", "species", "frame", "pos", "hamming", "dna", "taxid",
               "h16")
