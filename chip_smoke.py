@@ -70,13 +70,31 @@ Phases, one line each; any failure exits non-zero:
   pipeline  the classify phase's run is pipelined: the worker's finish
             seconds, the part of them during which the main thread parsed
             or dispatched another batch, and each thread's CPU seconds
+  reduced   the port's CLI ``build --reduced-aa 1`` of dbbuild's library at
+            the defaults (K1's reduced variant on the card), then K1
+            reduced and K11 (K2's reduced variant) against their plain
+            versions on the first 8,192 smoke reads and the reduced
+            index (as in kernels), then ``classify`` of the 65,536 reads
+            against it (the host taxonomer, as the JAX package takes for
+            reduced DBs): the DB, gene-block and classifications digests
+            and the classified count must equal the JAX package's on the
+            CPU (constants below), K1 and K11 launched
+  chunked   the classify phase's DB and reads through the CLI with
+            --max-ram 2 (2^28 rows x 28 B = 7 GiB: 4 AA-aligned chunks,
+            each built once on the card, kept in pinned host memory and
+            copied in per batch): reads/s, the chunk_copy stage,
+            peak device memory; the classifications must equal the
+            classify phase's, 58,985 classified, and the run's peak above
+            the resident chunk's buffers must stay under the --max-ram
+            budget
 
 Each CLI run of a phase starts with every launch count at 0 and reads
 them when it returns. The last three lines are the kernels' JSON record
-(K1-K4, each with its longread record and launches, then the probes
-P1-P4 with their launches in the classify run, 0 since they are off the
-path, and their loop_ms and library_* times), nvidia-smi's name and power
-limit, and the device record.
+(K1-K4 and K11, each with its longread record and its launches in each
+phase's run; K11's ``launches`` are the reduced run's, the others' the
+classify run's; then the probes P1-P4 with their launches in the classify
+run, 0 since they are off the path, and their loop_ms and library_*
+times), nvidia-smi's name and power limit, and the device record.
 """
 
 from __future__ import annotations
@@ -129,12 +147,27 @@ LONGREAD_BATCH = 1_024
 LONGREAD_CLASSIFIED = 7_373
 LONGREAD_CLASSIFICATIONS_SHA256 = (
     "4759244bdc2f7f244444d890205c3e688c0a2eec0b0ec5b17b81ac3db9a72b82")
+# the reduced phase: the JAX package's DB, gene-block and classifications
+# digests and classified count for dbbuild's library built with
+# --reduced-aa 1 and the 65,536 reads, printed by
+#   JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py reduced
+REDUCED_DB_SHA256 = (
+    "29f1738b89353814b83fe7dbea3ad94dd8773514f3832dc5d15079ffeb41e7f0")
+REDUCED_BLOCKS_SHA256 = (
+    "bd85eb7000f51ce0a9f1caa35227210570b2d8fb66354e2dab2d6aa61467bb05")
+REDUCED_CLASSIFIED = 58_985
+REDUCED_CLASSIFICATIONS_SHA256 = (
+    "ee8328606e1ff07f4ac26e5e0379699a53168f8282a1302b85103f259f2e63a0")
+# the chunked phase's --max-ram (GiB) and the chunks it gives the smoke DB
+CHUNKED_MAX_RAM = 2
+CHUNKED_CHUNKS = 4
 
 # kernel name -> its CUDA functions, as the profiler names them
 KERNEL_FUNCTIONS = {"extract_metamers": ["extract_kernel"],
                     "search_scan": ["count_kernel", "write_kernel"],
                     "chain_matches": ["chain_kernel"],
-                    "combine_paths": ["combine_kernel"]}
+                    "combine_paths": ["combine_kernel"],
+                    "search_scan_reduced": ["count_kernel", "write_kernel"]}
 
 KERNELS = [
     # name, source, the XLA block it replaces
@@ -146,7 +179,13 @@ KERNELS = [
      "metabuli_tpu/classify/device_chain.py:89"),
     ("combine_paths", "metabuli_tpu_torch/csrc/combine.cu",
      "metabuli_tpu/classify/device_combine.py:66"),
+    # K11: K2's reduced-alphabet variant, run only on a reduced DB
+    ("search_scan_reduced", "metabuli_tpu_torch/csrc/search_scan.cu",
+     "metabuli_tpu/ops/hamming.py:119"),
 ]
+# the kernels of the standard alphabet's classify path
+MAIN_KERNELS = ("extract_metamers", "search_scan", "chain_matches",
+                "combine_paths")
 
 
 def say(phase: str, **kv) -> None:
@@ -193,6 +232,72 @@ def max_abs_err(got, want) -> float:
     return err
 
 
+def record_kernel(out, phase, name, fn_k, fn_p, cost, shape=None):
+    """One kernel against its plain version on the same inputs, into
+    ``out`` (kernel -> record; a ``shape`` of a kernel goes under that key
+    of its record): equal outputs, the wrapper's and the plain version's
+    median ms, the kernels' device time alone (launch_ms) and the bound
+    from ``cost(outputs)``, the least bytes of the call. Fails the run on
+    any difference. Returns the kernel's outputs."""
+    import torch
+
+    from metabuli_tpu_torch.classify import pipeline
+    from metabuli_tpu_torch.tools.probes import (LostLaunches, bound,
+                                                 device_ms, median_ms)
+
+    got, want = fn_k(), fn_p()
+    torch.cuda.synchronize()
+    # K2's count of warps that walked again is the kernel's own
+    same = lambda r: (r[:-1] if isinstance(r, pipeline.Candidates)
+                      else [x for x in r if x is not None])
+    err = max_abs_err(same(got), same(want))
+    if err != 0:
+        fail(phase, f"{name} differs from its plain version ({err})")
+    b_ms, b_by = bound(cost(got))
+    try:
+        l_ms, parts = device_ms(fn_k, KERNEL_FUNCTIONS[name], at_least=b_ms)
+        lost = {}
+    except LostLaunches as e:
+        # H6: every trace lost the launches, a fault of the profiler on
+        # that machine and not of the kernel; recorded as probes.py does
+        l_ms, parts, lost = None, {}, {"launch_lost": str(e)}
+    rec = {"max_abs_err": err, "ms": median_ms(fn_k), "launch_ms": l_ms,
+           "plain_ms": median_ms(fn_p), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, **lost}
+    if shape is None:
+        out[name] = rec
+    else:
+        out.setdefault(name, {})[shape] = rec
+    say(phase, kernel=name, **({} if shape is None else {"shape": shape}),
+        equal=err == 0,
+        **{k: None if rec[k] is None else round(rec[k], 4)
+           for k in ("ms", "launch_ms", "plain_ms", "bound_ms")},
+        bound_by=b_by,
+        launch_parts_ms=[round(p, 4) for p in parts.values()], **lost)
+    return got
+
+
+def scan_cost(idx, q, W, cap, phase, table_bytes=8):
+    """K2's or K11's least bytes on query slots ``q`` (value, valid,
+    dna48 or None) of index ``idx``: 17 B per query slot (value, valid,
+    dna48; 9 B without dna48), 12 B per valid slot (two prefix entries and
+    the grest entry found), 8 B per hit slot (gstart, gend),
+    ``table_bytes`` per window row (d48, or K11's 4-byte half of taxdna)
+    and 12 B per kept row out (row, slot, payload)."""
+    import torch
+
+    from metabuli_tpu_torch.classify import pipeline
+
+    gs, ge, hit = pipeline._search_groups(idx, q[0], q[1])
+    n_valid, n_hit = int(q[1].sum()), int(hit.sum())
+    n_window = int((torch.minimum(ge, gs + cap) - gs).sum())
+    say(phase, slots=q[0].numel(), valid_slots=n_valid, hit_slots=n_hit,
+        window_rows=n_window)
+    per_slot = 9 if q[2] is None else 17
+    return lambda c: (per_slot * q[0].numel() + 12 * n_valid + 8 * n_hit
+                      + table_bytes * n_window + 12 * c.row.numel())
+
+
 def kernel_phase(clf, metas, rows, out, phase="kernels", shape=None,
                  k1_shapes=()) -> dict:
     """K1-K4 against their plain versions on one batch's tensors, into
@@ -206,7 +311,6 @@ def kernel_phase(clf, metas, rows, out, phase="kernels", shape=None,
     from metabuli_tpu_torch.classify.device_compact import compact_paths
     from metabuli_tpu_torch.ops import encode
     from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
-    from metabuli_tpu_torch.tools.probes import bound, device_ms, median_ms
 
     dev = clf.device
     codes, lens = encode_seqs_padded([r[0] for r in rows])
@@ -220,33 +324,7 @@ def kernel_phase(clf, metas, rows, out, phase="kernels", shape=None,
         return sum(t.numel() * t.element_size() for t in ts)
 
     def record(name, fn_k, fn_p, cost, shape=shape):
-        """``cost(outputs)`` -> least bytes of the call; a second ``shape``
-        of a kernel is kept under that key of its record."""
-        got, want = fn_k(), fn_p()
-        torch.cuda.synchronize()
-        # K2's count of warps that walked again is the kernel's own
-        same = lambda r: (r[:-1] if isinstance(r, pipeline.Candidates)
-                          else r)
-        err = max_abs_err(same(got), same(want))
-        b_ms, b_by = bound(cost(got))
-        l_ms, parts = device_ms(fn_k, KERNEL_FUNCTIONS[name],
-                                at_least=b_ms)
-        rec = {"max_abs_err": err, "ms": median_ms(fn_k), "launch_ms": l_ms,
-               "plain_ms": median_ms(fn_p), "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": None}
-        if shape is None:
-            out[name] = rec
-        else:
-            out.setdefault(name, {})[shape] = rec
-        say(phase, kernel=name, **({} if shape is None else
-                                       {"shape": shape}), equal=err == 0,
-            **{k: round(rec[k], 4)
-               for k in ("ms", "launch_ms", "plain_ms", "bound_ms")},
-            bound_by=b_by,
-            launch_parts_ms=[round(p, 4) for p in parts.values()])
-        if err != 0:
-            fail(phase, f"{name} differs from its plain version ({err})")
-        return got
+        return record_kernel(out, phase, name, fn_k, fn_p, cost, shape)
 
     # least bytes: every input read once, every output written once (K2:
     # only the table entries its queries need; K4: only what it must read)
@@ -267,16 +345,10 @@ def kernel_phase(clf, metas, rows, out, phase="kernels", shape=None,
         torch.cuda.empty_cache()
     idx, W = clf.dev_index, mm.value.shape[2]
     q = (mm.value.reshape(-1), mm.valid.reshape(-1), mm.dna48.reshape(-1))
-    gs, ge, hit = pipeline._search_groups(idx, q[0], q[1])
-    n_valid, n_hit = int(q[1].sum()), int(hit.sum())
-    n_window = int((torch.minimum(ge, gs + clf.cap) - gs).sum())
-    say(phase, slots=q[0].numel(), valid_slots=n_valid,
-        hit_slots=n_hit, window_rows=n_window)
     cand = record("search_scan",
                   lambda: pipeline.search_scan(idx, *q, W, clf.cap),
                   lambda: pipeline.search_scan_plain(idx, *q, W, clf.cap),
-                  lambda c: (17 * q[0].numel() + 12 * n_valid + 8 * n_hit
-                             + 8 * n_window + 12 * c.row.numel()))
+                  scan_cost(idx, q, W, clf.cap, phase))
     say(phase, stash_per_slot=pipeline.stash_per_slot(idx),
         rows_per_hit=round(idx.rows_per_hit, 3),
         warps=(q[0].numel() + 31) // 32, warps_walked_again=cand.n_rewalk)
@@ -367,9 +439,10 @@ def sha256_of(*paths) -> str:
     return h.hexdigest()
 
 
-def dbbuild_phase(tmp, tax, genomes, fq, dev) -> dict:
+def dbbuild_phase(tmp, tax, genomes, fq, dev):
     """The CLI's build, updateDB and classify (see the module docstring);
-    returns each step's kernel launch counts."""
+    returns each step's kernel launch counts, and the library's list and
+    accession map."""
     from metabuli_tpu_torch.tools import world
 
     lib, acc = world.write_library(os.path.join(tmp, "library"), genomes,
@@ -436,7 +509,173 @@ def dbbuild_phase(tmp, tax, genomes, fq, dev) -> dict:
                         f"package {UPDATED_CLASSIFIED}")
     if digest != UPDATED_CLASSIFICATIONS_SHA256:
         fail("dbbuild", "the classifications differ from the JAX package's")
-    return launches
+    return launches, lib, acc
+
+
+def reduced_phase(tmp, lib, acc, fq, dev, timings) -> dict:
+    """``build --reduced-aa 1`` of dbbuild's library, K1 reduced and K11
+    against their plain versions, and ``classify`` of the smoke reads (see
+    the module docstring); returns the classify run's launch counts and
+    the build's K1 launches."""
+    import torch
+
+    from metabuli_tpu_torch.classify import pipeline
+    from metabuli_tpu_torch.classify.classifier import Classifier
+    from metabuli_tpu_torch.ops import encode
+    from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
+    from metabuli_tpu_torch.params import ClassifyParams
+
+    t0 = time.perf_counter()
+    rdb = os.path.join(tmp, "reduced_db")
+    s, build_counts = counted_cli(
+        ["build", rdb, lib, acc, "--taxonomy-path",
+         os.path.join(tmp, "skew_taxonomy"), "--db-date", DB_DATE,
+         "--reduced-aa", "1"], dev)
+    got = sha256_of(*(os.path.join(rdb, f)
+                      for f in ("diffIdx", "info", "taxID_list")))
+    say("reduced", step="build", sequences=s["sequences"],
+        blocks=s["blocks"], total_kmers=s["total_kmers"],
+        unique_kmers=s["unique_kmers"],
+        k1_launches=build_counts["extract_metamers"],
+        run_s=round(s["run_s"], 3), peak_mem_gib=round(s["peak_mem_gib"], 3),
+        stage_s={k: round(v, 3) for k, v in s["stage_s"].items()})
+    say("reduced", step="build", db_sha256=got,
+        equal_jax=got == REDUCED_DB_SHA256,
+        blocks_equal_jax=s["blocks_sha256"] == REDUCED_BLOCKS_SHA256)
+    if build_counts["extract_metamers"] == 0:
+        fail("reduced", "build: K1 never launched")
+    if got != REDUCED_DB_SHA256:
+        fail("reduced", "the reduced DB differs from the JAX package's"
+             + (" (so do the gene blocks)"
+                if s["blocks_sha256"] != REDUCED_BLOCKS_SHA256 else ""))
+
+    # K1 reduced and K11 on the first smoke batch and the reduced index
+    clf = Classifier(rdb, ClassifyParams(seq_mode=1, batch_reads=8192),
+                     device=dev)
+    idx = clf.dev_index
+    say("reduced", db_load_s=round(clf.load_s, 3), cap=clf.cap,
+        index_rows=idx.n, mode=clf.mode, reduced=idx.reduced)
+    if not idx.reduced or clf.mode != "host":
+        fail("reduced", "the DB did not load as a reduced index on the host "
+                        "taxonomer path")
+    metas, rows = next(clf._iter_batches(fq, None))
+    codes, lens = encode_seqs_padded([r[0] for r in rows])
+    codes = torch.from_numpy(codes).to(dev)
+    lens = torch.from_numpy(lens).to(dev)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts
+                            if t is not None)
+    mm = record_kernel(
+        timings, "reduced", "extract_metamers",
+        lambda: encode.extract_metamers(codes, lens, reduced=True),
+        lambda: encode.extract_metamers_plain(codes, lens, reduced=True),
+        lambda r: nbytes([codes, lens, *r]), shape="reduced")
+    W = mm.value.shape[2]
+    q = (mm.value.reshape(-1), mm.valid.reshape(-1), None)
+    record_kernel(
+        timings, "reduced", "search_scan_reduced",
+        lambda: pipeline.search_scan(idx, *q, W, clf.cap),
+        lambda: pipeline.search_scan_plain(idx, *q, W, clf.cap),
+        scan_cost(idx, q, W, clf.cap, "reduced", table_bytes=4))
+    del clf, mm, q, codes, lens
+    torch.cuda.empty_cache()
+
+    out = os.path.join(tmp, "reduced_out")
+    s, counts = counted_cli(["classify", fq, rdb, out, "reduced",
+                             "--seq-mode", "1", "--batch-reads", "8192"],
+                            dev)
+    digest = sha256_of(os.path.join(out, "reduced_classifications.tsv"))
+    say("reduced", step="classify", reads=s["reads"],
+        classified=s["classified"],
+        reads_per_s=round(s["reads"] / s["classify_s"], 1),
+        classify_s=round(s["classify_s"], 3), db_load_s=round(s["load_s"], 3),
+        host_assign_s=round(s["finish_s"], 3),
+        peak_mem_gib=round(s["peak_mem_gib"], 3), launches=counts)
+    say("reduced", step="classify",
+        stage_ms={k: round(v, 3) for k, v in s["stage_ms"].items()})
+    say("reduced", classifications_sha256=digest,
+        equal_jax=digest == REDUCED_CLASSIFICATIONS_SHA256,
+        phase_s=round(time.perf_counter() - t0, 3))
+    if counts["extract_metamers"] == 0 or counts["search_scan_reduced"] == 0:
+        fail("reduced", f"K1 or K11 never launched: {counts}")
+    if s["classified"] != REDUCED_CLASSIFIED:
+        fail("reduced", f"{s['classified']} reads classified, the JAX "
+                        f"package {REDUCED_CLASSIFIED}")
+    if digest != REDUCED_CLASSIFICATIONS_SHA256:
+        fail("reduced", "the classifications differ from the JAX package's")
+    shutil.rmtree(rdb, ignore_errors=True)
+    return counts, build_counts["extract_metamers"]
+
+
+def chunked_phase(tmp, fq, db, want_digest, dev) -> dict:
+    """The classify phase's reads and DB through the CLI with --max-ram
+    CHUNKED_MAX_RAM (see the module docstring); returns the launch
+    counts."""
+    from unittest import mock
+
+    import torch
+
+    from metabuli_tpu_torch.classify.chunked import ChunkedIndex
+    from metabuli_tpu_torch.classify.classifier import Classifier
+
+    t0 = time.perf_counter()
+    seen = {}
+    run = Classifier.classify_file
+
+    def measured(self, *args, **kw):
+        # the run's device memory from its first batch on: the chunk
+        # buffers resident, the peak above them
+        torch.cuda.synchronize(dev)
+        seen["resident"] = torch.cuda.memory_allocated(dev)
+        seen["index"] = self.dev_index
+        torch.cuda.reset_peak_memory_stats(dev)
+        s = run(self, *args, **kw)
+        seen["peak"] = torch.cuda.max_memory_allocated(dev)
+        return s
+
+    out = os.path.join(tmp, "chunked_out")
+    with mock.patch.object(Classifier, "classify_file", measured):
+        s, counts = counted_cli(
+            ["classify", fq, db, out, "chunked", "--seq-mode", "1",
+             "--batch-reads", "8192", "--max-ram", str(CHUNKED_MAX_RAM)],
+            dev)
+    digest = sha256_of(os.path.join(out, "chunked_classifications.tsv"))
+    ix = seen["index"]
+    budget = CHUNKED_MAX_RAM << 30
+    n_chunks = len(ix.bounds) if isinstance(ix, ChunkedIndex) else 1
+    chunk_bytes = ix.device_bytes if n_chunks > 1 else 0
+    above = seen["peak"] - chunk_bytes
+    say("chunked", reads=s["reads"], classified=s["classified"],
+        chunks=n_chunks,
+        chunk_rows=[b - a for a, b in getattr(ix, "bounds", [])],
+        reads_per_s=round(s["reads"] / s["classify_s"], 1),
+        classify_s=round(s["classify_s"], 3), db_load_s=round(s["load_s"], 3),
+        peak_mem_gib=round(s["peak_mem_gib"], 3),
+        run_peak_gib=round(seen["peak"] / 2**30, 3),
+        resident_gib=round(seen["resident"] / 2**30, 3),
+        chunk_buffers_gib=round(chunk_bytes / 2**30, 3),
+        peak_above_chunk_gib=round(above / 2**30, 3),
+        budget_gib=CHUNKED_MAX_RAM, launches=counts)
+    say("chunked", stage_ms={k: round(v, 3)
+                             for k, v in s["stage_ms"].items()},
+        chunk_copy_ms_per_batch=round(
+            s["stage_ms"].get("chunk_copy", 0.0) / -(-s["reads"] // 8192),
+            3),
+        equal_classify=digest == want_digest,
+        phase_s=round(time.perf_counter() - t0, 3))
+    if n_chunks != CHUNKED_CHUNKS:
+        fail("chunked", f"{n_chunks} chunks, expected {CHUNKED_CHUNKS}")
+    if min(counts[name] for name in MAIN_KERNELS) == 0:
+        fail("chunked", f"a kernel never launched: {counts}")
+    if s["classified"] != CLASSIFIED:
+        fail("chunked", f"{s['classified']} reads classified, expected "
+                        f"{CLASSIFIED}")
+    if digest != want_digest:
+        fail("chunked", "the classifications differ from the classify "
+                        "phase's")
+    if above >= budget:
+        fail("chunked", "the run's peak above the chunk buffers exceeds "
+                        "the --max-ram budget")
+    return counts
 
 
 def parity(clf, metas, rows, resident, phase) -> None:
@@ -543,7 +782,7 @@ def longread_phase(tmp, dev, timings) -> dict:
         equal_jax=digest == LONGREAD_CLASSIFICATIONS_SHA256,
         phase_s=round(time.perf_counter() - t0, 3))
     if (s["reads"] != LONGREAD_READS
-            or min(counts[name] for name, _, _ in KERNELS) == 0):
+            or min(counts[name] for name in MAIN_KERNELS) == 0):
         fail("longread", f"{s['reads']} reads, launches {counts}")
     if s["classified"] != LONGREAD_CLASSIFIED:
         fail("longread", f"{s['classified']} reads classified, the JAX "
@@ -733,7 +972,7 @@ def main() -> int:
             fail("tiny", "expected 120 classified reads split 50/50")
 
         # ---- dbbuild: the CLI's build, updateDB and classify
-        build_launches = dbbuild_phase(tmp, tax, genomes, fq, dev)
+        build_launches, lib, acc = dbbuild_phase(tmp, tax, genomes, fq, dev)
 
         # ---- classify: the CLI on 65,536 reads, kernels counted
         s, counts = counted_cli(["classify", fq, db,
@@ -754,15 +993,18 @@ def main() -> int:
         if s["classified"] != CLASSIFIED:
             fail("classify", f"{s['classified']} reads classified, "
                              f"expected {CLASSIFIED}")
-        if min(counts[name] for name, _, _ in KERNELS) == 0:
+        if min(counts[name] for name in MAIN_KERNELS) == 0:
             fail("classify", f"a kernel never launched: {counts}")
         smoke_digest = sha256_of(os.path.join(tmp, "out",
                                               "smoke_classifications.tsv"))
 
-        # ---- longread, hosttax, pipeline
+        # ---- longread, hosttax, pipeline, reduced, chunked
         lr_launches = longread_phase(tmp, dev, timings)
         ht_launches = hosttax_phase(tmp, fq, db, smoke_digest, dev)
         pipeline_phase(s)
+        red_launches, red_build_k1 = reduced_phase(tmp, lib, acc, fq, dev,
+                                                   timings)
+        ch_launches = chunked_phase(tmp, fq, db, smoke_digest, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -771,13 +1013,20 @@ def main() -> int:
                   "library_loop_ms", "library_launch_ms")
     timings["extract_metamers"].update(
         launches_build=build_launches["build"]["extract_metamers"],
-        launches_update=build_launches["update"]["extract_metamers"])
+        launches_update=build_launches["update"]["extract_metamers"],
+        launches_reduced_build=red_build_k1)
     for name, _, _ in KERNELS:
-        timings[name].update(launches_longread=lr_launches[name],
-                             launches_hosttax=ht_launches[name])
+        timings[name].update(launches_classify=counts[name],
+                             launches_longread=lr_launches[name],
+                             launches_hosttax=ht_launches[name],
+                             launches_reduced=red_launches[name],
+                             launches_chunked=ch_launches[name])
+    # the main path of each kernel: K11's is the reduced run
+    main_run = {name: red_launches if name == "search_scan_reduced"
+                else counts for name, _, _ in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **timings[name]}
+         "launches": main_run[name][name], **timings[name]}
         for name, src, rep in KERNELS] + [
         {"name": name, "route": r["route"], "source": r["source"],
          "replaces": r["replaces"], "launches": counts[name],

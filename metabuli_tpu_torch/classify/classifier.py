@@ -18,6 +18,13 @@ thread finishes batch i on the host; batches are written in order. Stages
 are sized exactly on the device, so there is no warm-up batch and no
 retry.
 
+The reduced alphabet (``--reduced-aa 1``) takes the host path (or the log
+path under ``--print-log``) whatever ``--device-tax`` says, as in the
+reference package: the device taxonomer's stages assume the standard
+codon layout. A DB over ``--max-ram``, or whose index build would not fit
+the card's free memory, streams through the card in AA-aligned chunks
+(``chunked.ChunkedIndex``).
+
 Paths that are not ported raise ``NotImplementedError`` naming their
 ROADMAP.md item; none is taken quietly.
 """
@@ -38,19 +45,13 @@ from ..io import fasta
 from ..io.report import Reporter
 from ..ops.genetic_code import encode_seqs_padded
 from ..params import ClassifyParams
+from .chunked import BYTES_PER_ROW, ChunkedIndex, build_chunks
 from .device_taxonomer import DeviceTaxonomer
 from .native_taxonomer import NativeTaxonomer
 from .pipeline import (FIELDS, HostCopy, MatchColumns, build_dev_index,
                        classify_core, matches_to_host, to_host_async)
 from .taxonomer import ReadClassification, Taxonomer, TaxonomerParams
 
-# device bytes per table row: taxdna + d48 (16) + a group's grest, gstart,
-# gend (12, at most one group per row)
-BYTES_PER_ROW = 28
-# device bytes per table row at the peak of the index build (sort keys,
-# permutation and expansion temporaries): 22.8 GiB for 2^28 rows, measured
-# on an H100 80GB HBM3 (chip_smoke.py's skew DB)
-BUILD_BYTES_PER_ROW = 92
 # device bytes per 150 bp read of a batch above the resident index: 0.346
 # GiB for 8,192 reads, measured on the same card and DB; an automatic
 # batch also ends at these bytes per base (long reads, contigs)
@@ -157,21 +158,9 @@ class Classifier:
         params.skip_redundancy = dbp.skip_redundancy
         if dbp.accession_level == 0 and params.accession_level == 1:
             params.accession_level = 0
-        if params.reduced_aa:
-            raise not_ported("--reduced-aa 1 (reduced alphabet)", "item 9")
         if params.kmer_format != 2:
             raise not_ported("kmer_format 1 databases", "item 14")
-        rows = len(self.index.values)
-        if rows * BYTES_PER_ROW > int(params.max_ram) << 30:
-            raise not_ported("a DB larger than --max-ram (chunked index)",
-                             "item 7")
-        if self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            if rows * BUILD_BYTES_PER_ROW > free:
-                raise not_ported(
-                    f"a DB larger than the card ({rows} rows need "
-                    f"~{rows * BUILD_BYTES_PER_ROW / 2**30:.1f} GiB to load, "
-                    f"{free / 2**30:.1f} GiB free; chunked index)", "item 7")
+        reduced = bool(params.reduced_aa)
         self.taxonomy = self.index.taxonomy
         tp = TaxonomerParams(
             min_score=params.min_score,
@@ -184,15 +173,18 @@ class Classifier:
             seq_mode=params.seq_mode,
             accession_level=params.accession_level,
             em=bool(params.em),
-            reduced_aa=False,
+            reduced_aa=reduced,
             kmer_format=params.kmer_format,
             print_log=bool(params.print_log),
         )
         # --print-log dumps each species' match paths during combination
         # (Taxonomer.cpp:346-353); only the Python taxonomer prints them,
-        # so it takes every read, as in the reference package
+        # so it takes every read, as in the reference package; the device
+        # taxonomer assumes the standard codon layout, so the reduced
+        # alphabet takes the host path
         self.mode = ("log" if params.print_log else
-                     "device" if params.device_tax else "host")
+                     "device" if params.device_tax and not reduced
+                     else "host")
         self.taxonomer = self.device_taxonomer = self.native_taxonomer = None
         if self.mode == "log":
             self.taxonomer = Taxonomer(tp, self.taxonomy)
@@ -207,9 +199,25 @@ class Classifier:
         # Reference quirk kept for bit-identity (`KmerMatcher.cpp:363-406`):
         # the last k-mer of the database never becomes a candidate, so it
         # is left out of the searchable table.
-        self.dev_index = build_dev_index(
-            self.index.values[:-1], self.index.taxids[:-1].astype(np.int32),
-            kmer_format=params.kmer_format, device=self.device)
+        values = self.index.values[:-1]
+        taxids = self.index.taxids[:-1].astype(np.int32)
+        # chunks: as many as --max-ram asks for at BYTES_PER_ROW (as the
+        # reference package decides, on the whole table), and at least as
+        # many as keep one chunk's index build within the free memory
+        rows = len(self.index.values)
+        budget = int(params.max_ram) << 30
+        min_chunks = 1
+        if self.device.type == "cuda":
+            min_chunks = build_chunks(
+                rows, torch.cuda.mem_get_info(self.device)[0])
+        if rows * BYTES_PER_ROW > budget or min_chunks > 1:
+            self.dev_index = ChunkedIndex(
+                values, taxids, budget, reduced=reduced, device=self.device,
+                min_chunks=min_chunks)
+        else:
+            self.dev_index = build_dev_index(
+                values, taxids, kmer_format=params.kmer_format,
+                device=self.device, reduced=reduced)
         self.d_species = torch.as_tensor(
             self.index.species_table().astype(np.int32), device=self.device)
         if self.device.type == "cuda":

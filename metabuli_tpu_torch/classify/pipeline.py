@@ -1,13 +1,14 @@
 """Device index and match core: encoded reads -> sorted match columns.
 
-The counterpart of ``metabuli_tpu.classify.pipeline`` for the standard
-alphabet and ``kmer_format`` 2, in its plain table layout:
+The counterpart of ``metabuli_tpu.classify.pipeline`` for ``kmer_format``
+2, in its plain table layout:
 
   grest  i32 [G]   permuted amino-acid key bits below the bucket prefix
   gstart i32 [G]   first row of the group
   gend   i32 [G]   one past its last row
   taxdna i64 [N]   value_lo32 << 32 | taxid
-  d48    i64 [N]   the row's 8 codons as raw bases, 6 bits each
+  d48    i64 [N]   the row's 8 codons as raw bases, 6 bits each (standard
+                   alphabet only)
   prefix i32 [2^prefix_bits + 1]   bucket -> first group
 
 Groups (runs of one amino-acid word) are ordered by the permuted key
@@ -17,6 +18,15 @@ bucket, then scans the group's rows (at most ``cap``), keeps those whose
 Hamming sum is within ``min(2 * min, 7)``, and the kept rows become
 matches sorted in the reference order (qid, species, frame, pos,
 hamming, dna) (`KmerMatcher.cpp:1149-1166`).
+
+The reduced alphabet (``reduced=True``, ``--reduced-aa 1``) keys groups
+by the 32-bit amino-acid part (``value >> 32``, permuted mod 2^32) and
+scores a row on its 32-bit codon-number part, the high word of
+``taxdna`` (the reference package's ``lo32``), through K11's table
+(``ops.hamming``); it has no d48.
+
+``classify_core`` takes a ``DevIndex`` or a ``chunked.ChunkedIndex``,
+whose chunks are copied in one at a time and scanned in turn.
 
 Every stage is sized exactly from a count read back from the device, so
 none of the reference package's caps, budgets or retry ladder exist here.
@@ -39,6 +49,7 @@ import torch
 from ..csrc import build
 from ..ops import encode
 from ..ops.encode import srl
+from ..ops.hamming import hamming_all_reduced_plain, reduced_lut
 
 PREFIX_BITS = 26  # cap; see pick_prefix_bits
 AA_PERM_MULT = 0x9E3779B97F4A7C15
@@ -54,14 +65,31 @@ def pick_prefix_bits(n_groups: int) -> int:
     return bits
 
 
-def aa_permute(aa: torch.Tensor) -> torch.Tensor:
-    """``aa * AA_PERM_MULT mod 2^40`` for 40-bit keys in int64, split into
-    20-bit halves so that no product overflows."""
+def aa_permute(aa: torch.Tensor, reduced: bool = False) -> torch.Tensor:
+    """``aa * AA_PERM_MULT mod 2^40`` for 40-bit keys in int64 (``mod
+    2^32`` for the reduced alphabet's 32-bit keys), split into 20-bit (16-
+    bit) halves so that no product overflows."""
+    if reduced:
+        m32 = AA_PERM_MULT & 0xFFFFFFFF
+        lo_m, hi_m = m32 & 0xFFFF, m32 >> 16
+        al, ah = aa & 0xFFFF, aa >> 16
+        mid = (al * hi_m + ah * lo_m) & 0xFFFF
+        return (al * lo_m + (mid << 16)) & 0xFFFFFFFF
     lo_m, hi_m = _MUL40 & 0xFFFFF, _MUL40 >> 20
     al = aa & 0xFFFFF
     ah = aa >> 20
     mid = (al * hi_m + ah * lo_m) & 0xFFFFF
     return (al * lo_m + (mid << 20)) & _M40
+
+
+def aa_key(value: torch.Tensor, reduced: bool) -> torch.Tensor:
+    """The amino-acid part of int64 metamers: 40 bits at 24, or 32 bits
+    at 32 for the reduced alphabet."""
+    return srl(value, 32 if reduced else 24)
+
+
+def key_bits(reduced: bool) -> int:
+    return 32 if reduced else 40
 
 
 def _expansion_table() -> np.ndarray:
@@ -96,13 +124,14 @@ class DevIndex:
     gstart: torch.Tensor
     gend: torch.Tensor
     taxdna: torch.Tensor
-    d48: torch.Tensor
+    d48: torch.Tensor | None  # None for the reduced alphabet
     prefix: torch.Tensor
     n: int                 # table rows
     prefix_bits: int
     search_iters: int      # lower-bound steps that cover the fullest bucket
     max_group: int         # deepest group, rows
     rows_per_hit: float    # size-biased mean group: sum |g|^2 / sum |g|
+    reduced: bool = False  # the reduced alphabet (K11 scores it)
 
     @property
     def device(self) -> torch.device:
@@ -112,7 +141,7 @@ class DevIndex:
     def from_numpy(cls, grest, gstart, gend, taxdna, d48, prefix,
                    device="cpu") -> "DevIndex":
         """Load tables made as numpy arrays (e.g. by the reference
-        package's builder in its plain layout)."""
+        package's builder in its plain layout; standard alphabet)."""
         def t(a, dt):
             a = np.ascontiguousarray(a)
             if a.dtype == np.uint64:
@@ -126,7 +155,8 @@ class DevIndex:
                            t(d48, np.int64), prefix)
 
     @classmethod
-    def _finish(cls, grest, gstart, gend, taxdna, d48, prefix) -> "DevIndex":
+    def _finish(cls, grest, gstart, gend, taxdna, d48, prefix,
+                reduced: bool = False) -> "DevIndex":
         pb = int(prefix.numel() - 1).bit_length() - 1
         max_bucket = int((prefix[1:] - prefix[:-1]).max()) if pb else 1
         iters = max(1, int(np.ceil(np.log2(max(2, max_bucket + 1)))))
@@ -136,15 +166,22 @@ class DevIndex:
         return cls(grest, gstart, gend, taxdna, d48, prefix,
                    n=int(taxdna.numel()), prefix_bits=pb,
                    search_iters=iters, max_group=max(max_group, 1),
-                   rows_per_hit=int((size * size).sum()) / max(rows, 1))
+                   rows_per_hit=int((size * size).sum()) / max(rows, 1),
+                   reduced=reduced)
 
     def tables(self):
         return (self.grest, self.gstart, self.gend, self.taxdna, self.d48,
                 self.prefix)
 
+    def on_device(self, mark=None):
+        """The index as ``classify_core`` scans it: itself (a
+        ``ChunkedIndex`` yields its chunks, one copied in at a time)."""
+        yield self
+
 
 def build_dev_index(values: np.ndarray, taxids: np.ndarray,
-                    kmer_format: int = 2, device="cpu") -> DevIndex:
+                    kmer_format: int = 2, device="cpu",
+                    reduced: bool = False) -> DevIndex:
     """Group, permute and bucket a sorted u64 table on ``device``."""
     if kmer_format != 2:
         raise NotImplementedError(
@@ -157,7 +194,7 @@ def build_dev_index(values: np.ndarray, taxids: np.ndarray,
         np.ascontiguousarray(values, np.uint64).view(np.int64)).to(dev)
     tx = torch.from_numpy(np.ascontiguousarray(taxids, np.int32)).to(dev)
     n = v.numel()
-    aa = srl(v, 24)
+    aa = aa_key(v, reduced)
     new_g = torch.ones(n, dtype=torch.bool, device=dev)
     if n:
         new_g[1:] = aa[1:] != aa[:-1]
@@ -165,10 +202,10 @@ def build_dev_index(values: np.ndarray, taxids: np.ndarray,
     del new_g
     n_groups = starts.numel()
     pb = pick_prefix_bits(max(n_groups, 1))
-    rb = 40 - pb
+    rb = key_bits(reduced) - pb
     if n_groups:
         ends = torch.cat([starts[1:], torch.tensor([n], device=dev)])
-        pi, order = torch.sort(aa_permute(aa[starts]), stable=True)
+        pi, order = torch.sort(aa_permute(aa[starts], reduced), stable=True)
         grest = (pi & ((1 << rb) - 1)).to(torch.int32)
         gstart = starts[order].to(torch.int32)
         gend = ends[order].to(torch.int32)
@@ -183,10 +220,10 @@ def build_dev_index(values: np.ndarray, taxids: np.ndarray,
     prefix = torch.zeros((1 << pb) + 1, dtype=torch.int64, device=dev)
     prefix[1:] = torch.cumsum(counts, 0)
     taxdna = ((v & 0xFFFFFFFF) << 32) | (tx.to(torch.int64) & 0xFFFFFFFF)
-    d48 = expand_db_dna48(v)
+    d48 = None if reduced else expand_db_dna48(v)
     del v, tx
     return DevIndex._finish(grest, gstart, gend, taxdna, d48,
-                            prefix.to(torch.int32))
+                            prefix.to(torch.int32), reduced)
 
 
 # ------------------------------------------------------------------ K2
@@ -220,8 +257,8 @@ def _hamming48(q: torch.Tensor, t: torch.Tensor):
 def _search_groups(index: DevIndex, q_value: torch.Tensor,
                    q_valid: torch.Tensor):
     """Bucketed lower-bound search -> (group start row, group end, hit)."""
-    rb = 40 - index.prefix_bits
-    pi = aa_permute(srl(q_value, 24))
+    rb = key_bits(index.reduced) - index.prefix_bits
+    pi = aa_permute(aa_key(q_value, index.reduced), index.reduced)
     rest = (pi & ((1 << rb) - 1)).to(torch.int32)
     bucket = pi >> rb
     lo = index.prefix[bucket].to(torch.int64)
@@ -242,10 +279,11 @@ def _search_groups(index: DevIndex, q_value: torch.Tensor,
 
 
 def search_scan_plain(index: DevIndex, q_value: torch.Tensor,
-                      q_valid: torch.Tensor, q_dna48: torch.Tensor,
+                      q_valid: torch.Tensor, q_dna48: torch.Tensor | None,
                       W: int, cap: int) -> Candidates:
-    """Plain PyTorch version of kernel K2: each query's candidate window
-    is expanded with ``repeat_interleave`` and scanned as one flat batch."""
+    """Plain PyTorch version of kernel K2 (and of K11 on a reduced index,
+    which reads no ``q_dna48``): each query's candidate window is expanded
+    with ``repeat_interleave`` and scanned as one flat batch."""
     dev = q_value.device
     Q = q_value.numel()
     gs, ge, hit = _search_groups(index, q_value, q_valid)
@@ -254,7 +292,11 @@ def search_scan_plain(index: DevIndex, q_value: torch.Tensor,
     slot = torch.repeat_interleave(torch.arange(Q, device=dev), cnt)
     first = torch.cumsum(cnt, 0) - cnt
     row = gs[slot] + torch.arange(slot.numel(), device=dev) - first[slot]
-    hsum, fwd, rev = _hamming48(q_dna48[slot], index.d48[row])
+    if index.reduced:
+        hsum, fwd, rev = hamming_all_reduced_plain(
+            q_value[slot] & 0xFFFFFFFF, srl(index.taxdna[row], 32))
+    else:
+        hsum, fwd, rev = _hamming48(q_dna48[slot], index.d48[row])
     frame = torch.div(slot, W, rounding_mode="floor") % 6
     h16 = torch.where(frame < 3, fwd, rev)
     min_h = torch.full((Q,), 255, dtype=torch.int64, device=dev)
@@ -280,22 +322,28 @@ def stash_per_slot(index: DevIndex) -> int:
 
 
 def search_scan(index: DevIndex, q_value: torch.Tensor,
-                q_valid: torch.Tensor, q_dna48: torch.Tensor,
+                q_valid: torch.Tensor, q_dna48: torch.Tensor | None,
                 W: int, cap: int) -> Candidates:
     """Kernel K2 wrapper: a count launch, a scan of the per-warp counts,
-    one read-back of the output size, a write launch in slot order. CPU
-    tensors take the plain version."""
+    one read-back of the output size, a write launch in slot order. A
+    reduced index launches K11, K2's reduced variant (its query word is
+    ``q_value``'s low half, so ``q_dna48`` is not read). CPU tensors take
+    the plain version."""
     if q_value.device.type == "cpu":
         return search_scan_plain(index, q_value, q_valid, q_dna48, W, cap)
-    if q_value.dtype != torch.int64 or q_dna48.dtype != torch.int64 \
+    reduced = index.reduced
+    # the query and table words the scan scores
+    q_word = q_value if reduced else q_dna48
+    t_word = index.taxdna if reduced else index.d48
+    if q_value.dtype != torch.int64 or q_word.dtype != torch.int64 \
             or q_valid.dtype != torch.bool:
         raise TypeError("search_scan: value/dna48 int64, valid bool")
     if not 0 < cap < (1 << 31):
         raise ValueError(f"search_scan: cap {cap} outside (0, 2^31)")
     dev = q_value.device
     Q = q_value.numel()
-    tabs = (index.grest, index.gstart, index.gend, index.prefix, index.d48)
-    build.require_cuda("search_scan", q_value, q_valid, q_dna48, *tabs)
+    tabs = (index.grest, index.gstart, index.gend, index.prefix, t_word)
+    build.require_cuda("search_scan", q_value, q_valid, q_word, *tabs)
     i32 = dict(dtype=torch.int32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     if Q == 0:
@@ -312,25 +360,32 @@ def search_scan(index: DevIndex, q_value: torch.Tensor,
     wstash = torch.empty(n_warps, **i64)
     lib = build.get_lib()
     st = build.stream(dev)
-    rc = lib.mtb_search_count(
-        q_value.data_ptr(), q_valid.data_ptr(), q_dna48.data_ptr(), Q, W,
+    name = "search_scan_reduced" if reduced else "search_scan"
+    # K11's table rides as one more argument of its two launches
+    lut = (reduced_lut(dev).data_ptr(),) if reduced else ()
+    count, write = ((lib.mtb_search_count_reduced,
+                     lib.mtb_search_write_reduced) if reduced else
+                    (lib.mtb_search_count, lib.mtb_search_write))
+    rc = count(
+        q_value.data_ptr(), q_valid.data_ptr(), q_word.data_ptr(), Q, W,
         index.grest.data_ptr(), index.gstart.data_ptr(),
         index.gend.data_ptr(), index.prefix.data_ptr(),
-        index.d48.data_ptr(), index.prefix_bits, cap, start.data_ptr(),
+        t_word.data_ptr(), index.prefix_bits, cap, start.data_ptr(),
         wlen.data_ptr(), cut.data_ptr(), acc.data_ptr(),
-        stash.data_ptr(), n_stash, top.data_ptr(), wstash.data_ptr(), st)
-    build.check(rc, "search_scan")
-    build.launches["search_scan"] += 1
+        stash.data_ptr(), n_stash, top.data_ptr(), wstash.data_ptr(), *lut,
+        st)
+    build.check(rc, name)
+    build.launches[name] += 1
     scan = torch.cumsum(acc, 0)
     total, with_over, with_rewalk = scan[-3:].tolist()  # the one read-back
     row, slot, pay = (torch.empty(total, **i32) for _ in range(3))
     if total:
-        rc = lib.mtb_search_write(
-            q_dna48.data_ptr(), Q, W, index.d48.data_ptr(),
+        rc = write(
+            q_word.data_ptr(), Q, W, t_word.data_ptr(),
             start.data_ptr(), wlen.data_ptr(), cut.data_ptr(),
             scan.data_ptr(), stash.data_ptr(), wstash.data_ptr(),
-            row.data_ptr(), slot.data_ptr(), pay.data_ptr(), st)
-        build.check(rc, "search_scan")
+            row.data_ptr(), slot.data_ptr(), pay.data_ptr(), *lut, st)
+        build.check(rc, name)
     return Candidates(row, slot, pay, with_over - total,
                       with_rewalk - with_over)
 
@@ -361,12 +416,19 @@ def sort_by_keys(keys, cols):
     return [c[order] for c in cols]
 
 
-def classify_core(index: DevIndex, tax2species: torch.Tensor,
+def classify_core(index, tax2species: torch.Tensor,
                   codes: torch.Tensor, lens: torch.Tensor,
                   pos_offsets: torch.Tensor, qid_offsets: torch.Tensor, *,
                   cap: int, syncmer: bool = False, smer_len: int = 5,
                   plain: bool = False, timer=None):
-    """Encoded reads -> (MatchColumns, counters).
+    """Encoded reads -> (MatchColumns, counters), against a ``DevIndex``
+    or a ``chunked.ChunkedIndex``.
+
+    K1 runs once; K2 (K11 on a reduced index) and the fetch run against
+    each resident index in turn, a chunked index copying its chunks in one
+    at a time. The chunks' kept rows, concatenated in chunk order, go
+    through the one stable sort: its ties lie within one query slot, whose
+    amino-acid group lies in one chunk, so the order is the single index's.
 
     ``plain=True`` runs the plain versions of K1 and K2 wherever the
     tensors lie (the kernel-versus-plain check on the card); otherwise the
@@ -376,32 +438,54 @@ def classify_core(index: DevIndex, tax2species: torch.Tensor,
     extract = (encode.extract_metamers_plain if plain
                else encode.extract_metamers)
     scan = search_scan_plain if plain else search_scan
-    mm = extract(codes, lens, syncmer=syncmer, smer_len=smer_len)
+    reduced = index.reduced
+    mm = extract(codes, lens, syncmer=syncmer, smer_len=smer_len,
+                 reduced=reduced)
     mark("extract")
     B, _, W = mm.value.shape
-    cand = scan(index, mm.value.reshape(-1), mm.valid.reshape(-1),
-                mm.dna48.reshape(-1), W, cap)
-    mark("search_scan")
-    slot = cand.slot.to(torch.int64)
+    q = (mm.value.reshape(-1), mm.valid.reshape(-1),
+         None if reduced else mm.dna48.reshape(-1))
+    slots, words, pays = [], [], []
+    n_over = 0
+    for ix in index.on_device(mark):
+        cand = scan(ix, *q, W, cap)
+        mark("search_scan")
+        slots.append(cand.slot)
+        words.append(ix.taxdna[cand.row.to(torch.int64)])
+        pays.append(cand.pay)
+        n_over += cand.n_over_cap
+    cat = lambda ts: ts[0] if len(ts) == 1 else torch.cat(ts)
+    slot, tw, pay = cat(slots).to(torch.int64), cat(words), cat(pays)
     read = torch.div(slot, 6 * W, rounding_mode="floor") if W else slot
     qid = qid_offsets[read]
     pos = mm.pos.reshape(-1)[slot] + pos_offsets[read]
-    tw = index.taxdna[cand.row.to(torch.int64)]
     taxid = (tw & 0xFFFFFFFF).to(torch.int32)
-    dna = (srl(tw, 32) & 0xFFFFFF).to(torch.int32)
+    if reduced:
+        # the full 32-bit codon-number word, as int32 bits
+        dna = srl(tw, 32)
+        dna = (dna - ((dna & 0x80000000) << 1)).to(torch.int32)
+    else:
+        dna = (srl(tw, 32) & 0xFFFFFF).to(torch.int32)
     species = tax2species[taxid.to(torch.int64)]
-    frame = cand.pay & 7
-    ham = (cand.pay >> 3) & 7
-    packed = frame | (ham << 3) | ((cand.pay >> 6) << 11)
+    frame = pay & 7
+    ham = (pay >> 3) & 7
+    packed = frame | (ham << 3) | ((pay >> 6) << 11)
     mark("fetch")
     i64 = lambda x: x.to(torch.int64)
     k1 = (i64(qid) << 32) | i64(species)
-    k2 = (i64(frame) << 59) | (i64(pos) << 27) | (i64(ham) << 24) | i64(dna)
-    cols = sort_by_keys([k1, k2], (qid, species, pos, dna, taxid, packed))
+    if reduced:
+        # 32 bits of dna leave no room beside pos: a third key, the dna
+        # compared unsigned (the reference package flips its sign bit)
+        keys = [k1, (i64(frame) << 35) | (i64(pos) << 3) | i64(ham),
+                i64(dna) & 0xFFFFFFFF]
+    else:
+        keys = [k1, (i64(frame) << 59) | (i64(pos) << 27) | (i64(ham) << 24)
+                | i64(dna)]
+    cols = sort_by_keys(keys, (qid, species, pos, dna, taxid, packed))
     mark("sort")
     counts = {
         "n_matches": int(qid.numel()),
-        "n_over_cap": cand.n_over_cap,
+        "n_over_cap": n_over,
         "total_kmers": int(mm.valid.sum()),
     }
     return MatchColumns(*cols), counts

@@ -40,10 +40,12 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches since the last reset: K1-K4 of the classify
-# path, then the probes P1-P4 (tools/probes.py)
+# path (K1 of either alphabet), K11 (K2's reduced-alphabet variant), then
+# the probes P1-P4 (tools/probes.py)
 launches = {"extract_metamers": 0, "search_scan": 0, "chain_matches": 0,
-            "combine_paths": 0, "gather_tile_sum": 0, "merge_join_sum": 0,
-            "smoke_double": 0, "stream_sum": 0}
+            "combine_paths": 0, "search_scan_reduced": 0,
+            "gather_tile_sum": 0, "merge_join_sum": 0, "smoke_double": 0,
+            "stream_sum": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -56,6 +58,9 @@ _SIGNATURES = {
     # value, pos, valid, dna48, stream
     "mtb_extract_metamers": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
                              _P, _P, _P, _P, _P],
+    # the same, dna48 unused (null)
+    "mtb_extract_metamers_reduced": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                     _P, _P, _P, _P, _P],
     # value, valid, dna48, Q, W, grest, gstart, gend, prefix, d48,
     # prefix_bits, cap, start, wlen, cut, acc, stash, stash_cap,
     # stash_top, wstash, stream
@@ -65,6 +70,14 @@ _SIGNATURES = {
     # out_row, out_slot, out_pay, stream
     "mtb_search_write": [_P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P],
+    # K11: the same two launches for the reduced alphabet; value stands in
+    # for dna48 (its low 32 bits are the query's codon numbers), taxdna
+    # for d48 (its high 32 bits the row's), then the 16x16 int32 LUT
+    "mtb_search_count_reduced": [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P,
+                                 _I, _I, _P, _P, _P, _P, _P, _L, _P, _P,
+                                 _P, _P],
+    "mtb_search_write_reduced": [_P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P],
     # M, qid, species, frame, pos, ham, dna, h16,
     # min_depth, n_species, max_shift, kmer_format,
     # p_score, p_start, p_ham, p_depth, p_sh16, emit, stream

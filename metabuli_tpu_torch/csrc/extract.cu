@@ -28,6 +28,14 @@
 // The stores still take ~2x their bound at the main path's shape: a
 // 150-base read is one CTA of 252 slots whose loads, decode and stores
 // follow one another, so per-CTA latency, not bandwidth, sets the pace.
+//
+// The reduced 16-letter alphabet (--reduced-aa 1) is the same kernel with
+// Reduced = true: its own codon tables (amino acids 0..15, codon numbers
+// 0..10), value = 8 x 4-bit amino acids << 32 | 8 x 4-bit codon numbers,
+// and no dna48 (reduced metamers are scored on their codon numbers). Each
+// decoded codon keeps a 4-bit codon-number field in both variants: the
+// reference's scanner packs 3 bits and truncates reduced codon numbers
+// above 7 (metabuli_tpu/ops/encode.py:84-91), which this layout avoids.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,6 +51,7 @@ constexpr int WORDS = (BASES + 2 + 3) / 4 + 1;
 constexpr int THREADS = 128;  // a full chunk: 2 windows a thread and frame
 constexpr uint32_t VALID = 1u << 15;
 
+template <bool Reduced>
 __global__ void __launch_bounds__(THREADS)
 extract_kernel(const uint8_t* __restrict__ codes,
                const int32_t* __restrict__ lens, int L, int W, int chunks,
@@ -52,8 +61,10 @@ extract_kernel(const uint8_t* __restrict__ codes,
                int64_t* __restrict__ value, int32_t* __restrict__ pos,
                bool* __restrict__ valid, int64_t* __restrict__ dna48) {
   __shared__ uint32_t s_words[WORDS];
-  __shared__ uint16_t s_tab[64];         // aa << 3 | codon number
-  __shared__ uint16_t s_cod[6][CODONS];  // VALID | aa << 9 | num << 6 | c6
+  constexpr int AA_BITS = Reduced ? 4 : 5;
+  constexpr int NUM_BITS = Reduced ? 4 : 3;
+  __shared__ uint16_t s_tab[64];         // aa << 4 | codon number
+  __shared__ uint16_t s_cod[6][CODONS];  // VALID | aa << 10 | num << 6 | c6
   __shared__ uint64_t s_smer[6][CODONS];
   const unsigned chunk = blockIdx.x % (unsigned)chunks;
   const int b = (int)(blockIdx.x / (unsigned)chunks);
@@ -72,7 +83,7 @@ extract_kernel(const uint8_t* __restrict__ codes,
   const uint32_t* words = (const uint32_t*)(first - shift);
   for (int i = tid; i < (shift + nb + 3) / 4; i += THREADS)
     s_words[i] = words[i];
-  if (tid < 64) s_tab[tid] = (uint16_t)(aa_tab[tid] << 3 | num_tab[tid]);
+  if (tid < 64) s_tab[tid] = (uint16_t)(aa_tab[tid] << 4 | num_tab[tid]);
   __syncthreads();
   const uint8_t* base = (const uint8_t*)s_words + shift;
 
@@ -104,7 +115,7 @@ extract_kernel(const uint8_t* __restrict__ codes,
       uint64_t v = 0;
       for (int j = 0; j < smer_len; ++j) {
         const int c = f < 3 ? kk + j : kk + smer_len - 1 - j;
-        v = v << 5 | (uint64_t)(s_cod[f][c] >> 9 & 31);
+        v = v << 5 | (uint64_t)(s_cod[f][c] >> 10 & 31);
       }
       s_smer[f][kk] = v;
     }
@@ -120,9 +131,9 @@ extract_kernel(const uint8_t* __restrict__ codes,
     for (int j = 0; j < K; ++j) {
       const uint32_t code = s_cod[f][reverse ? wl + K - 1 - j : wl + j];
       ok = ok && (code & VALID);
-      aa_part = aa_part << 5 | (code >> 9 & 31);
-      dna_part = dna_part << 3 | (code >> 6 & 7);
-      d48 = d48 << 6 | (code & 63);
+      aa_part = aa_part << AA_BITS | (code >> 10 & 31);
+      dna_part = dna_part << NUM_BITS | (code >> 6 & 15);
+      if (!Reduced) d48 = d48 << 6 | (code & 63);
     }
     if (ok && syncmer) {
       // keep iff the FIRST minimal s-mer sits at offset 0 or 8-s
@@ -142,11 +153,26 @@ extract_kernel(const uint8_t* __restrict__ codes,
     const int w = w0 + wl;
     const int begin = f < 3 ? f : ((len % 3) - (f - 3) + 3) % 3;
     const int64_t t = ((int64_t)b * 6 + f) * W + w;
-    value[t] = ok ? (int64_t)(aa_part << 24 | dna_part) : 0;
-    dna48[t] = ok ? (int64_t)d48 : 0;
+    value[t] = ok ? (int64_t)(aa_part << 8 * NUM_BITS | dna_part) : 0;
+    if (!Reduced) dna48[t] = ok ? (int64_t)d48 : 0;
     pos[t] = (int32_t)(begin + 3 * (int64_t)w);
     valid[t] = ok;
   }
+}
+
+template <bool Reduced>
+int launch(const uint8_t* codes, const int32_t* lens, int B, int L, int W,
+           int syncmer, int smer_len, const int32_t* aa_tab,
+           const int32_t* num_tab, int64_t* value, int32_t* pos, bool* valid,
+           int64_t* dna48, cudaStream_t stream) {
+  const int chunks = (W + CHUNK - 1) / CHUNK;
+  const int64_t ctas = (int64_t)B * chunks;  // grid x holds up to 2^31 - 1
+  if (B < 1 || W < 1 || ctas > 0x7fffffff || smer_len < 1 || smer_len > K)
+    return (int)cudaErrorInvalidValue;
+  extract_kernel<Reduced><<<(unsigned)ctas, THREADS, 0, stream>>>(
+      codes, lens, L, W, chunks, syncmer, smer_len, aa_tab, num_tab, value,
+      pos, valid, dna48);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -157,12 +183,16 @@ extern "C" int mtb_extract_metamers(const uint8_t* codes, const int32_t* lens,
                                     const int32_t* num_tab, int64_t* value,
                                     int32_t* pos, bool* valid, int64_t* dna48,
                                     cudaStream_t stream) {
-  const int chunks = (W + CHUNK - 1) / CHUNK;
-  const int64_t ctas = (int64_t)B * chunks;  // grid x holds up to 2^31 - 1
-  if (B < 1 || W < 1 || ctas > 0x7fffffff || smer_len < 1 || smer_len > K)
-    return (int)cudaErrorInvalidValue;
-  extract_kernel<<<(unsigned)ctas, THREADS, 0, stream>>>(
-      codes, lens, L, W, chunks, syncmer, smer_len, aa_tab, num_tab, value,
-      pos, valid, dna48);
-  return (int)cudaGetLastError();
+  return launch<false>(codes, lens, B, L, W, syncmer, smer_len, aa_tab,
+                       num_tab, value, pos, valid, dna48, stream);
+}
+
+// the reduced alphabet: dna48 is not written (may be null)
+extern "C" int mtb_extract_metamers_reduced(
+    const uint8_t* codes, const int32_t* lens, int B, int L, int W,
+    int syncmer, int smer_len, const int32_t* aa_tab, const int32_t* num_tab,
+    int64_t* value, int32_t* pos, bool* valid, int64_t* dna48,
+    cudaStream_t stream) {
+  return launch<true>(codes, lens, B, L, W, syncmer, smer_len, aa_tab,
+                      num_tab, value, pos, valid, dna48, stream);
 }

@@ -37,6 +37,17 @@
 // the whole index (prefix, grest, gstart, gend, d48), so fewer sectors per
 // slot (one record per group) is the next step for this kernel.
 //
+// K11, the reduced alphabet (--reduced-aa 1), is the same design with
+// Reduced = true (mtb_search_count_reduced, mtb_search_write_reduced):
+// the amino-acid key is value >> 32 (permuted mod 2^32), the query word is
+// value's low 32 bits (8 codon numbers of 4 bits), the candidate word the
+// high 32 bits of the row's taxdna, and the distance is
+// metabuli_tpu/ops/hamming.py:119 hamming_all_reduced: per codon a look-up
+// of the 16x16 distance table, staged in shared memory (lanes index it
+// divergently, which a __constant__ table would serialise), summed, and
+// ORed into the 16-bit words with the reference's spill quirk kept (a
+// distance of 4 spills into the next codon's lane).
+//
 // Launches: mtb_search_count writes per slot (window start, length, Hamming
 // cutoff), per warp (kept pairs into acc[w], the over-cap slots added to
 // acc[n_warps], the warps that found the pool full to acc[n_warps + 1],
@@ -69,6 +80,38 @@ __device__ __forceinline__ int hamming48(uint64_t q, uint64_t t, bool fwd,
   }
   *h16 = packed;
   return __popcll(m);
+}
+
+// K11: the reduced-alphabet distance of two words of 8 4-bit codon numbers
+// through the 16x16 table ``lut``; h16 as hamming48's, cut to 16 bits
+__device__ __forceinline__ int hamming_reduced(uint32_t q, uint32_t t,
+                                               bool fwd,
+                                               const uint8_t* lut,
+                                               int* h16) {
+  int sum = 0, packed = 0;
+  for (int i = 0; i < 8; ++i) {
+    int d = lut[(q >> (4 * i) & 15) << 4 | (t >> (4 * i) & 15)];
+    sum += d;
+    packed |= d << (2 * (fwd ? i : 7 - i));
+  }
+  *h16 = packed & 0xFFFF;
+  return sum;
+}
+
+// the scan's table word of a row and its distance to the query word: the
+// row's dna48 (standard), or its codon numbers, the high half of taxdna
+// (reduced)
+template <bool Reduced>
+__device__ __forceinline__ int distance(uint64_t q,
+                                        const int64_t* __restrict__ table,
+                                        int32_t row, bool fwd,
+                                        const uint8_t* lut, int* h16) {
+  if (Reduced)
+    return hamming_reduced(
+        (uint32_t)q,
+        reinterpret_cast<const uint32_t*>(table)[2 * (int64_t)row + 1], fwd,
+        lut, h16);
+  return hamming48(q, (uint64_t)table[row], fwd, h16);
 }
 
 __device__ __forceinline__ long long warp_inclusive_sum(long long x,
@@ -105,10 +148,12 @@ struct Pair {
 };
 
 // pair f0 + lane of the flat list: its owner, table row and Hamming
+template <bool Reduced>
 __device__ __forceinline__ Pair pair_at(const FlatWindows& fw, long long f0,
                                         int lane, int len, int32_t gs,
                                         uint64_t q, int frame,
-                                        const int64_t* __restrict__ d48) {
+                                        const int64_t* __restrict__ d48,
+                                        const uint8_t* lut) {
   Pair p;
   long long f = f0 + lane;
   p.live = f < fw.total;
@@ -121,7 +166,7 @@ __device__ __forceinline__ Pair pair_at(const FlatWindows& fw, long long f0,
   p.h = 0;
   p.h16 = 0;
   if (p.live)
-    p.h = hamming48(qj, (uint64_t)d48[p.row], p.frame < 3, &p.h16);
+    p.h = distance<Reduced>(qj, d48, p.row, p.frame < 3, lut, &p.h16);
   return p;
 }
 
@@ -129,14 +174,15 @@ __device__ __forceinline__ Pair pair_at(const FlatWindows& fw, long long f0,
 // order: calls put(p, at) for each, at = its rank among the warp's kept
 // pairs; returns how many were kept. The count launch stashes them with it,
 // the write launch's second walk writes them out.
-template <class Put>
+template <bool Reduced, class Put>
 __device__ __forceinline__ long long walk_kept(
     const FlatWindows& fw, int lane, int len, int32_t gs, uint64_t q,
-    int frame, int c, const int64_t* __restrict__ d48, Put put) {
+    int frame, int c, const int64_t* __restrict__ d48, const uint8_t* lut,
+    Put put) {
   long long kept = 0;
   unsigned lt = (1u << lane) - 1;
   for (long long f0 = 0; f0 < fw.total; f0 += 32) {
-    Pair p = pair_at(fw, f0, lane, len, gs, q, frame, d48);
+    Pair p = pair_at<Reduced>(fw, f0, lane, len, gs, q, frame, d48, lut);
     int cj = __shfl_sync(kFull, c, p.j);
     bool keep = p.live && p.h <= cj;
     unsigned b = __ballot_sync(kFull, keep);
@@ -146,6 +192,19 @@ __device__ __forceinline__ long long walk_kept(
   return kept;
 }
 
+// the shared copy of K11's 16x16 table (reduced only), filled by the CTA
+template <bool Reduced>
+__device__ __forceinline__ void stage_lut(uint8_t* s_lut,
+                                          const int32_t* __restrict__ lut) {
+  if (!Reduced) return;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x)
+    s_lut[i] = (uint8_t)lut[i];
+  __syncthreads();
+}
+
+// count launch; for Reduced, qd48 is value itself (the query word is its
+// low half) and d48 is taxdna
+template <bool Reduced>
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
              const int64_t* __restrict__ qd48, int64_t Q, int W,
@@ -158,8 +217,11 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
              int32_t* __restrict__ cut, int64_t* __restrict__ acc,
              int2* __restrict__ stash, int64_t stash_cap,
              unsigned long long* __restrict__ stash_top,
-             int64_t* __restrict__ wstash) {
+             int64_t* __restrict__ wstash,
+             const int32_t* __restrict__ lut) {
   __shared__ int s_min[kThreads];
+  __shared__ uint8_t s_lut[Reduced ? 256 : 1];
+  stage_lut<Reduced>(s_lut, lut);
   int lane = threadIdx.x & 31;
   int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   int64_t s0 = s - lane;
@@ -172,11 +234,15 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
   uint64_t q = 0;
   int frame = 0;
   if (s < Q) {
-    q = (uint64_t)qd48[s];
+    q = Reduced ? (uint64_t)qd48[s] & 0xFFFFFFFFull : (uint64_t)qd48[s];
     frame = (int)((s / W) % 6);
     if (valid[s]) {
-      int rb = 40 - prefix_bits;
-      uint64_t pi = (((uint64_t)value[s] >> 24) * kPermMult) & kMask40;
+      // the amino-acid key: 40 bits at 24 (standard), 32 at 32 (reduced)
+      int rb = (Reduced ? 32 : 40) - prefix_bits;
+      uint64_t pi = Reduced ? ((((uint64_t)value[s] >> 32) * kPermMult)
+                               & 0xFFFFFFFFull)
+                            : ((((uint64_t)value[s] >> 24) * kPermMult)
+                               & kMask40);
       int32_t rest = (int32_t)(pi & ((1ull << rb) - 1));
       int64_t bucket = (int64_t)(pi >> rb);
       int32_t lo = prefix[bucket], hi = prefix[bucket + 1];
@@ -202,7 +268,7 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
   wmin[lane] = 255;
   __syncwarp();
   for (long long f0 = 0; f0 < fw.total; f0 += 32) {
-    Pair p = pair_at(fw, f0, lane, len, gs, q, frame, d48);
+    Pair p = pair_at<Reduced>(fw, f0, lane, len, gs, q, frame, d48, s_lut);
     if (p.live) atomicMin(&wmin[p.j], p.h);
   }
   __syncwarp();
@@ -218,8 +284,9 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
     if (at + fw.total <= (unsigned long long)stash_cap) base = (long long)at;
   }
   base = __shfl_sync(kFull, base, 0);
-  long long kept = walk_kept(
-      fw, lane, len, gs, q, frame, c, d48, [&](const Pair& p, long long at) {
+  long long kept = walk_kept<Reduced>(
+      fw, lane, len, gs, q, frame, c, d48, s_lut,
+      [&](const Pair& p, long long at) {
         if (base >= 0)
           stash[base + at] = make_int2(
               p.row, (p.j << 22) | (p.h16 << 6) | (p.h << 3) | p.frame);
@@ -241,6 +308,7 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
   }
 }
 
+template <bool Reduced>
 __global__ void __launch_bounds__(kThreads)
 write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
              const int64_t* __restrict__ d48,
@@ -251,7 +319,10 @@ write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
              const int2* __restrict__ stash,
              const int64_t* __restrict__ wstash,
              int32_t* __restrict__ out_row, int32_t* __restrict__ out_slot,
-             int32_t* __restrict__ out_pay) {
+             int32_t* __restrict__ out_pay,
+             const int32_t* __restrict__ lut) {
+  __shared__ uint8_t s_lut[Reduced ? 256 : 1];
+  stage_lut<Reduced>(s_lut, lut);
   int lane = threadIdx.x & 31;
   int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   int64_t s0 = s - lane;
@@ -276,18 +347,47 @@ write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
     gs = start[s];
     len = wlen[s];
     c = cut[s];
-    q = (uint64_t)qd48[s];
+    q = Reduced ? (uint64_t)qd48[s] & 0xFFFFFFFFull : (uint64_t)qd48[s];
     frame = (int)((s / W) % 6);
   }
   FlatWindows fw;
   fw.incl = warp_inclusive_sum(len, lane);
   fw.total = __shfl_sync(kFull, fw.incl, 31);
-  walk_kept(fw, lane, len, gs, q, frame, c, d48,
+  walk_kept<Reduced>(fw, lane, len, gs, q, frame, c, d48, s_lut,
             [&](const Pair& p, long long at) {
               out_row[o + at] = p.row;
               out_slot[o + at] = (int32_t)(s0 + p.j);
               out_pay[o + at] = (p.h16 << 6) | (p.h << 3) | p.frame;
             });
+}
+
+template <bool Reduced>
+int count(const int64_t* value, const bool* valid, const int64_t* qd48,
+          int64_t Q, int W, const int32_t* grest, const int32_t* gstart,
+          const int32_t* gend, const int32_t* prefix, const int64_t* d48,
+          int prefix_bits, int cap, int32_t* start, int32_t* wlen,
+          int32_t* cut, int64_t* acc, int2* stash, int64_t stash_cap,
+          unsigned long long* stash_top, int64_t* wstash, const int32_t* lut,
+          cudaStream_t stream) {
+  int64_t blocks = (Q + kThreads - 1) / kThreads;
+  count_kernel<Reduced><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      value, valid, qd48, Q, W, grest, gstart, gend, prefix, d48,
+      prefix_bits, cap, start, wlen, cut, acc, stash, stash_cap, stash_top,
+      wstash, lut);
+  return (int)cudaGetLastError();
+}
+
+template <bool Reduced>
+int write(const int64_t* qd48, int64_t Q, int W, const int64_t* d48,
+          const int32_t* start, const int32_t* wlen, const int32_t* cut,
+          const int64_t* scan, const int2* stash, const int64_t* wstash,
+          int32_t* out_row, int32_t* out_slot, int32_t* out_pay,
+          const int32_t* lut, cudaStream_t stream) {
+  int64_t blocks = (Q + kThreads - 1) / kThreads;
+  write_kernel<Reduced><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      qd48, Q, W, d48, start, wlen, cut, scan, stash, wstash, out_row,
+      out_slot, out_pay, lut);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -301,12 +401,9 @@ extern "C" int mtb_search_count(const int64_t* value, const bool* valid,
                                 int64_t* acc, int2* stash, int64_t stash_cap,
                                 unsigned long long* stash_top, int64_t* wstash,
                                 cudaStream_t stream) {
-  int64_t blocks = (Q + kThreads - 1) / kThreads;
-  count_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      value, valid, qd48, Q, W, grest, gstart, gend, prefix, d48,
-      prefix_bits, cap, start, wlen, cut, acc, stash, stash_cap, stash_top,
-      wstash);
-  return (int)cudaGetLastError();
+  return count<false>(value, valid, qd48, Q, W, grest, gstart, gend, prefix,
+                      d48, prefix_bits, cap, start, wlen, cut, acc, stash,
+                      stash_cap, stash_top, wstash, nullptr, stream);
 }
 
 extern "C" int mtb_search_write(const int64_t* qd48, int64_t Q, int W,
@@ -316,9 +413,30 @@ extern "C" int mtb_search_write(const int64_t* qd48, int64_t Q, int W,
                                 const int64_t* wstash, int32_t* out_row,
                                 int32_t* out_slot, int32_t* out_pay,
                                 cudaStream_t stream) {
-  int64_t blocks = (Q + kThreads - 1) / kThreads;
-  write_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      qd48, Q, W, d48, start, wlen, cut, scan, stash, wstash, out_row,
-      out_slot, out_pay);
-  return (int)cudaGetLastError();
+  return write<false>(qd48, Q, W, d48, start, wlen, cut, scan, stash, wstash,
+                      out_row, out_slot, out_pay, nullptr, stream);
+}
+
+// K11: value stands in for qd48, taxdna for d48; lut is the 16x16 int32
+// distance table
+extern "C" int mtb_search_count_reduced(
+    const int64_t* value, const bool* valid, const int64_t* qword, int64_t Q,
+    int W, const int32_t* grest, const int32_t* gstart, const int32_t* gend,
+    const int32_t* prefix, const int64_t* taxdna, int prefix_bits, int cap,
+    int32_t* start, int32_t* wlen, int32_t* cut, int64_t* acc, int2* stash,
+    int64_t stash_cap, unsigned long long* stash_top, int64_t* wstash,
+    const int32_t* lut, cudaStream_t stream) {
+  return count<true>(value, valid, qword, Q, W, grest, gstart, gend, prefix,
+                     taxdna, prefix_bits, cap, start, wlen, cut, acc, stash,
+                     stash_cap, stash_top, wstash, lut, stream);
+}
+
+extern "C" int mtb_search_write_reduced(
+    const int64_t* qword, int64_t Q, int W, const int64_t* taxdna,
+    const int32_t* start, const int32_t* wlen, const int32_t* cut,
+    const int64_t* scan, const int2* stash, const int64_t* wstash,
+    int32_t* out_row, int32_t* out_slot, int32_t* out_pay, const int32_t* lut,
+    cudaStream_t stream) {
+  return write<true>(qword, Q, W, taxdna, start, wlen, cut, scan, stash,
+                     wstash, out_row, out_slot, out_pay, lut, stream);
 }

@@ -202,12 +202,9 @@ class IndexBuilder:
             raise RuntimeError(
                 "no CUDA device: the kernels run only on one; pass "
                 "device='cpu' (--device cpu) for the plain PyTorch versions")
-        if params.reduced_aa or params.kmer_format != 2:
+        if params.kmer_format != 2:
             from ..classify.classifier import not_ported
 
-            if params.reduced_aa:
-                raise not_ported("--reduced-aa 1 (reduced alphabet)",
-                                 "item 9")
             raise not_ported("--kmer-format 1 databases", "item 14")
         self.timer = BuildTimer(self.device)
         # the blocks handed to extraction, in order: with gene prediction
@@ -351,7 +348,8 @@ class IndexBuilder:
         with timer.device_stage("extract"):
             mm = encode.extract_metamers(d_codes, d_lens,
                                          syncmer=bool(par.syncmer),
-                                         smer_len=par.smer_len)
+                                         smer_len=par.smer_len,
+                                         reduced=bool(par.reduced_aa))
         with timer.stage("gather"):
             valid = mm.valid
             if batch[0].single_frame:

@@ -1,8 +1,8 @@
 """6-frame metamer extraction (kernel K1) and its plain PyTorch version.
 
-Semantics of ``metabuli_tpu.ops.encode.extract_metamers`` for the standard
-alphabet and ``kmer_format`` 2 (`KmerScanner.h:49-118`,
-`SyncmerScanner.h:9-103`, `KmerExtractor.cpp:342-373`):
+Semantics of ``metabuli_tpu.ops.encode.extract_metamers`` for
+``kmer_format`` 2 (`KmerScanner.h:49-118`, `SyncmerScanner.h:9-103`,
+`KmerExtractor.cpp:342-373`):
 
   * a read of length ``len`` covers ``aa_len = (len-2)//3`` codons per frame
     (none below length 2); the batch holds ``A = (L-2)//3`` codon columns
@@ -15,6 +15,10 @@ alphabet and ``kmer_format`` 2 (`KmerScanner.h:49-118`,
     (descending genome order); value = aa(5 bits x 8) << 24 | codon
     numbers (3 bits x 8); dna48 = the 8 codons' raw bases, 6 bits each, in
     the same order; pos = begin + 3w in every frame;
+  * the reduced 16-letter alphabet (``reduced=True``) takes its own codon
+    tables and packs value = aa(4 bits x 8) << 32 | codon numbers (4 bits
+    x 8) (`SeqIterator.cpp:29-43`); it is scored on those codon numbers
+    (K11), so it has no dna48;
   * closed syncmers keep a window iff the first minimal s-mer of its
     canonical s-mer sequence sits at offset 0 or 8-s.
 
@@ -39,7 +43,7 @@ class Metamers(NamedTuple):
     value: torch.Tensor  # [B, 6, W] int64 metamer bit patterns
     pos: torch.Tensor    # [B, 6, W] int32
     valid: torch.Tensor  # [B, 6, W] bool
-    dna48: torch.Tensor  # [B, 6, W] int64
+    dna48: torch.Tensor | None  # [B, 6, W] int64; None for reduced
 
 
 def srl(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -53,27 +57,30 @@ def max_windows(max_len: int) -> int:
     return max(0, max(0, (max_len - 2) // 3) - K + 1)
 
 
-# device -> (amino acid, codon number) int32 tables of the standard
+# (device, reduced) -> (amino acid, codon number) int32 tables of the
 # alphabet, built and uploaded once per device
-_TABLES: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+_TABLES: dict[tuple[torch.device, bool],
+              tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _tables(device) -> tuple[torch.Tensor, torch.Tensor]:
-    device = torch.device(device)
-    if device not in _TABLES:
-        aa_tab, num_tab = codon_tables(False)
-        _TABLES[device] = (
-            torch.as_tensor(aa_tab.astype(np.int32), device=device),
-            torch.as_tensor(num_tab.astype(np.int32), device=device))
-    return _TABLES[device]
+def _tables(device, reduced: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (torch.device(device), bool(reduced))
+    if key not in _TABLES:
+        aa_tab, num_tab = codon_tables(reduced)
+        _TABLES[key] = (
+            torch.as_tensor(aa_tab.astype(np.int32), device=key[0]),
+            torch.as_tensor(num_tab.astype(np.int32), device=key[0]))
+    return _TABLES[key]
 
 
-def _frame_codons(codes: torch.Tensor, lens: torch.Tensor, A: int):
+def _frame_codons(codes: torch.Tensor, lens: torch.Tensor, A: int,
+                  reduced: bool = False):
     """Per-frame codon arrays [B, 6, A]: amino acid (-1 invalid), codon
     number, raw 6-bit bases, and each frame's begin [B, 6]."""
     B, L = codes.shape
     dev = codes.device
-    aa_tab, num_tab = _tables(dev)
+    aa_tab, num_tab = _tables(dev, reduced)
     c = codes.to(torch.int64)
     lens = lens.to(torch.int64)
     aa_len = torch.clamp(3 * torch.div(lens - 2, 3, rounding_mode="floor"),
@@ -130,8 +137,8 @@ def _syncmer_keep_plain(aa: torch.Tensor, smer_len: int, W: int):
 
 
 def extract_metamers_plain(codes: torch.Tensor, lens: torch.Tensor, *,
-                           syncmer: bool = False,
-                           smer_len: int = 5) -> Metamers:
+                           syncmer: bool = False, smer_len: int = 5,
+                           reduced: bool = False) -> Metamers:
     """Plain PyTorch version of kernel K1 (any device)."""
     B, L = codes.shape
     A = max(0, (L - 2) // 3)
@@ -139,8 +146,10 @@ def extract_metamers_plain(codes: torch.Tensor, lens: torch.Tensor, *,
     dev = codes.device
     if W == 0:
         z = torch.zeros((B, 6, 0), dtype=torch.int64, device=dev)
-        return Metamers(z, z.to(torch.int32), z.to(torch.bool), z)
-    aa, num, c6, ok, begin = _frame_codons(codes, lens, A)
+        return Metamers(z, z.to(torch.int32), z.to(torch.bool),
+                        None if reduced else z)
+    aa, num, c6, ok, begin = _frame_codons(codes, lens, A, reduced)
+    bits_aa, bits_codon = (4, 4) if reduced else (5, 3)
     aa_part = torch.zeros((B, 6, W), dtype=torch.int64, device=dev)
     dna_part = torch.zeros_like(aa_part)
     dna48 = torch.zeros_like(aa_part)
@@ -152,27 +161,29 @@ def extract_metamers_plain(codes: torch.Tensor, lens: torch.Tensor, *,
         a_j = torch.cat([aa[:, :3, j: j + W], aa[:, 3:, o: o + W]], 1)
         n_j = torch.cat([num[:, :3, j: j + W], num[:, 3:, o: o + W]], 1)
         c_j = torch.cat([c6[:, :3, j: j + W], c6[:, 3:, o: o + W]], 1)
-        aa_part = (aa_part << 5) | torch.clamp(a_j, min=0)
-        dna_part = (dna_part << 3) | n_j
+        aa_part = (aa_part << bits_aa) | torch.clamp(a_j, min=0)
+        dna_part = (dna_part << bits_codon) | n_j
         dna48 = (dna48 << 6) | c_j
         valid = valid & ok[:, :, j: j + W]
     if syncmer:
         valid = valid & _syncmer_keep_plain(aa, smer_len, W)
-    value = (aa_part << 24) | dna_part
+    value = (aa_part << 8 * bits_codon) | dna_part
     value = torch.where(valid, value, 0)
-    dna48 = torch.where(valid, dna48, 0)
+    dna48 = None if reduced else torch.where(valid, dna48, 0)
     pos = begin[:, :, None] + 3 * torch.arange(W, device=dev)[None, None, :]
     return Metamers(value, pos.to(torch.int32), valid, dna48)
 
 
 def extract_metamers(codes: torch.Tensor, lens: torch.Tensor, *,
-                     syncmer: bool = False, smer_len: int = 5) -> Metamers:
-    """Kernel K1 wrapper: CUDA tensors launch ``mtb_extract_metamers``
-    (a CTA per chunk of a row's windows; the kernel writes every output
-    element); CPU tensors take the plain version."""
+                     syncmer: bool = False, smer_len: int = 5,
+                     reduced: bool = False) -> Metamers:
+    """Kernel K1 wrapper: CUDA tensors launch ``mtb_extract_metamers``, or
+    ``mtb_extract_metamers_reduced`` for the reduced alphabet (a CTA per
+    chunk of a row's windows; the kernel writes every output element);
+    CPU tensors take the plain version."""
     if codes.device.type == "cpu":
         return extract_metamers_plain(codes, lens, syncmer=syncmer,
-                                      smer_len=smer_len)
+                                      smer_len=smer_len, reduced=reduced)
     if codes.dtype != torch.uint8 or lens.dtype != torch.int32:
         raise TypeError("extract_metamers: codes uint8 [B, L], lens int32 [B]")
     B, L = codes.shape
@@ -182,19 +193,22 @@ def extract_metamers(codes: torch.Tensor, lens: torch.Tensor, *,
     W = max_windows(L)
     dev = codes.device
     value = torch.empty((B, 6, W), dtype=torch.int64, device=dev)
-    dna48 = torch.empty((B, 6, W), dtype=torch.int64, device=dev)
+    dna48 = (None if reduced else
+             torch.empty((B, 6, W), dtype=torch.int64, device=dev))
     pos = torch.empty((B, 6, W), dtype=torch.int32, device=dev)
     valid = torch.empty((B, 6, W), dtype=torch.bool, device=dev)
     if B == 0 or W == 0:
         return Metamers(value, pos, valid, dna48)
-    aa_tab, num_tab = _tables(dev)
+    aa_tab, num_tab = _tables(dev, reduced)
     build.require_cuda("extract_metamers", codes, lens)
     lib = build.get_lib()
-    rc = lib.mtb_extract_metamers(
-        codes.data_ptr(), lens.data_ptr(), B, L, W, int(bool(syncmer)),
-        int(smer_len), aa_tab.data_ptr(), num_tab.data_ptr(),
-        value.data_ptr(), pos.data_ptr(), valid.data_ptr(), dna48.data_ptr(),
-        build.stream(dev))
+    fn = (lib.mtb_extract_metamers_reduced if reduced
+          else lib.mtb_extract_metamers)
+    rc = fn(codes.data_ptr(), lens.data_ptr(), B, L, W, int(bool(syncmer)),
+            int(smer_len), aa_tab.data_ptr(), num_tab.data_ptr(),
+            value.data_ptr(), pos.data_ptr(), valid.data_ptr(),
+            None if reduced else dna48.data_ptr(), build.stream(dev))
     build.check(rc, "extract_metamers")
+    # both alphabets count as K1
     build.launches["extract_metamers"] += 1
     return Metamers(value, pos, valid, dna48)

@@ -1,10 +1,10 @@
-"""Reference digests of chip_smoke.py's dbbuild and longread phases, from
-the JAX package on the CPU.
+"""Reference digests of chip_smoke.py's dbbuild, longread and reduced
+phases, from the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py \
-        [dbbuild] [longread] [--port]
+        [dbbuild] [longread] [reduced] [--port]
 
-(both phases when none is named). dbbuild: builds the skew world of ``metabuli_tpu_torch.tools.world`` (seed 0, 384
+(dbbuild and longread when none is named). dbbuild: builds the skew world of ``metabuli_tpu_torch.tools.world`` (seed 0, 384
 species of 100 kb, one FASTA file per genus) with ``metabuli_tpu``'s
 ``build_database`` at the defaults (gene prediction and masking on),
 adds the 16-genome genus of ``world.new_genus`` with ``update_database``
@@ -19,8 +19,11 @@ chip_smoke.py's long-read DB (``world.build_db`` with 1,024 of its
 never-matching decoys in place of the card's 60 M, so the last row is a
 decoy there too) and its 8,192 reads of 3,000 bases (max_mut 30),
 classified with ``--seq-mode 3``, 1,024 a batch: the classified count and
-the classifications' sha256. ``--port`` runs the same steps through
-``metabuli_tpu_torch`` on the CPU as well and prints its line.
+the classifications' sha256. reduced: dbbuild's library built with
+``--reduced-aa 1`` at the defaults, and dbbuild's 65,536 reads classified
+against it, 8,192 a batch: the DB and gene-block digests, the classified
+count and the classifications' sha256. ``--port`` runs the same steps
+through ``metabuli_tpu_torch`` on the CPU as well and prints its line.
 """
 
 import hashlib
@@ -58,7 +61,9 @@ def write_fastq(path: str, reads) -> None:
             fh.write(f"@r{i}\n{r.decode()}\n+\n{'I' * len(r)}\n")
 
 
-def jax_run(tmp, lib, acc, taxdir, new, fq) -> dict:
+def jax_run(tmp, lib, acc, taxdir, new, fq, reduced=False) -> dict:
+    """dbbuild's build, updateDB and classify through the JAX package; with
+    ``reduced``, the reduced phase's build and classify."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -82,15 +87,26 @@ def jax_run(tmp, lib, acc, taxdir, new, fq) -> dict:
     build.IndexBuilder.add_sequences = hashed_add
     out = {}
     t0 = time.perf_counter()
-    db = os.path.join(tmp, "jax_db")
+    db = os.path.join(tmp, "jax_reduced_db" if reduced else "jax_db")
     st = build.build_database(db, lib, acc, taxdir,
-                              BuildParams(db_date=DB_DATE))
+                              BuildParams(db_date=DB_DATE,
+                                          reduced_aa=int(reduced)))
     (n, h), = blocks.values()
     out["build"] = {"total_kmers": st["total_kmers"],
                     "unique_kmers": st["unique_kmers"], "blocks": n,
                     "blocks_sha256": h.hexdigest(), "db_sha256": db_sha256(db),
                     "s": time.perf_counter() - t0}
     blocks.clear()
+    if reduced:
+        t0 = time.perf_counter()
+        clf = Classifier(db, ClassifyParams(seq_mode=1, batch_reads=8192))
+        s = clf.classify_file(fq, None, os.path.join(tmp, "jax_red_out"),
+                              "reduced")
+        out["classify"] = {"classified": s["classified"], "sha256": (
+            file_sha256(os.path.join(tmp, "jax_red_out",
+                                     "reduced_classifications.tsv"))),
+            "s": time.perf_counter() - t0}
+        return out
     t0 = time.perf_counter()
     db2 = os.path.join(tmp, "jax_db_updated")
     st = update_database(db2, db, new[0], new[1],
@@ -112,7 +128,7 @@ def jax_run(tmp, lib, acc, taxdir, new, fq) -> dict:
     return out
 
 
-def port_run(tmp, lib, acc, taxdir, new, fq) -> dict:
+def port_run(tmp, lib, acc, taxdir, new, fq, reduced=False) -> dict:
     import contextlib
     import io
 
@@ -125,13 +141,23 @@ def port_run(tmp, lib, acc, taxdir, new, fq) -> dict:
         return json.loads(buf.getvalue().strip().splitlines()[-1])
 
     out = {}
-    db = os.path.join(tmp, "port_db")
+    db = os.path.join(tmp, "port_reduced_db" if reduced else "port_db")
     db2 = os.path.join(tmp, "port_db_updated")
     st = cli(["build", db, lib, acc, "--taxonomy-path", taxdir,
-              "--db-date", DB_DATE, "--device", "cpu"])
+              "--db-date", DB_DATE, "--reduced-aa", str(int(reduced)),
+              "--device", "cpu"])
     out["build"] = {k: st[k] for k in ("total_kmers", "unique_kmers",
                                        "blocks", "blocks_sha256")}
     out["build"]["db_sha256"] = db_sha256(db)
+    if reduced:
+        s = cli(["classify", fq, db, os.path.join(tmp, "port_red_out"),
+                 "reduced", "--seq-mode", "1", "--batch-reads", "8192",
+                 "--device", "cpu"])
+        out["classify"] = {"classified": s["classified"],
+                           "sha256": file_sha256(os.path.join(
+                               tmp, "port_red_out",
+                               "reduced_classifications.tsv"))}
+        return out
     st = cli(["updateDB", db2, new[0], new[1], "--old-db", db,
               "--new-taxa", new[2], "--db-date", DB_DATE, "--device", "cpu"])
     out["update"] = {k: st[k] for k in ("total_kmers", "unique_kmers",
@@ -211,7 +237,7 @@ def main() -> int:
             if port:
                 print(json.dumps({"port": {"longread": longread_run(
                     tmp, db, fq, True)}}), flush=True)
-    if "dbbuild" not in phases:
+    if "dbbuild" not in phases and "reduced" not in phases:
         return 0
     with tempfile.TemporaryDirectory() as tmp:
         tax, genomes, rng = world.make_world(tmp, "skew")
@@ -222,11 +248,16 @@ def main() -> int:
         fq = os.path.join(tmp, "reads.fq")
         write_fastq(fq, reads)
         taxdir = os.path.join(tmp, "skew_taxonomy")
-        print(json.dumps({"jax": jax_run(tmp, lib, acc, taxdir, new, fq)}),
-              flush=True)
-        if port:
-            print(json.dumps({"port": port_run(tmp, lib, acc, taxdir, new,
-                                               fq)}), flush=True)
+        for phase in ("dbbuild", "reduced"):
+            if phase not in phases:
+                continue
+            red = phase == "reduced"
+            print(json.dumps({"jax": {phase: jax_run(
+                tmp, lib, acc, taxdir, new, fq, reduced=red)}}), flush=True)
+            if port:
+                print(json.dumps({"port": {phase: port_run(
+                    tmp, lib, acc, taxdir, new, fq, reduced=red)}}),
+                    flush=True)
     return 0
 
 

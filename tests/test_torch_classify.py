@@ -7,15 +7,21 @@ the batch pipeline)."""
 
 import os
 import pathlib
-import shutil
 
 import pytest
 import torch
 
+from helpers import jax_native
 from metabuli_tpu.db.build import build_database
 from metabuli_tpu.params import BuildParams
 from metabuli_tpu_torch.cli import main
 from test_golden import GOLDEN_DIR, _world
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX side on its native path, wherever this module runs."""
+    jax_native.loaded()
 
 
 def _golden_db(tmp_path, syncmer):
@@ -130,24 +136,6 @@ def golden_s0(tmp_path_factory):
     return _golden_db(tmp_path_factory.mktemp("gold"), 0)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--reduced-aa", "1"], "item 9"),
-    (["--max-ram", "0"], "item 7"),
-])
-def test_port_raises_for_paths_not_ported(tmp_path, golden_s0, flags,
-                                          item):
-    _, q, db = golden_s0
-    if flags == ["--reduced-aa", "1"]:
-        # db.parameters decides the alphabet: mark a copy of the DB reduced
-        db = shutil.copytree(db, tmp_path / "db_reduced")
-        p = pathlib.Path(db, "db.parameters")
-        p.write_text(p.read_text().replace("Reduced_alphabet\t0",
-                                           "Reduced_alphabet\t1"))
-    with pytest.raises(NotImplementedError, match=item):
-        main(["classify", q, str(db), str(tmp_path / "out"), "x",
-              "--seq-mode", "1", "--device", "cpu", *flags])
-
-
 def test_port_raises_for_multi_process_runs(tmp_path, golden_s0,
                                             monkeypatch):
     _, q, db = golden_s0
@@ -162,19 +150,6 @@ def test_port_defaults_to_cuda_and_never_falls_back_to_cpu(
     _, q, db = golden_s0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["classify", q, db, str(tmp_path / "out"), "x", "--seq-mode",
-              "1"])
-
-
-def test_port_raises_for_a_db_larger_than_the_card(tmp_path, golden_s0,
-                                                   monkeypatch):
-    # the guard runs before any tensor reaches the card, so a card with
-    # 1 KiB free can be stood in for on the CPU
-    _, q, db = golden_s0
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "mem_get_info",
-                        lambda device=None: (1 << 10, 80 << 30))
-    with pytest.raises(NotImplementedError, match="larger than the card"):
         main(["classify", q, db, str(tmp_path / "out"), "x", "--seq-mode",
               "1"])
 

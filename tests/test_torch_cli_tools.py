@@ -1,9 +1,11 @@
 """Every command of ``tests/test_cli_tools.py`` through both CLIs on the
 CPU: ``metabuli_tpu.cli`` against a DB the JAX package built, the port's
 ``metabuli_tpu_torch.cli`` against one it built itself (``--device cpu``).
-Each side works in a directory of its own; after each case the two
-directories hold the same files, byte for byte (with each side's own
-path written as one placeholder), and each command printed the same."""
+Each side works in a directory of its own; after each case the files a
+case may touch (its own directory, and the shared DB and classifications,
+which no case may change) are the same on both sides, byte for byte (with
+each side's own path written as one placeholder), and each command printed
+the same."""
 
 import contextlib
 import io
@@ -15,6 +17,7 @@ import shutil
 import numpy as np
 import pytest
 
+from helpers import jax_native
 from metabuli_tpu import cli as jax_cli
 from metabuli_tpu_torch import __version__
 from metabuli_tpu_torch import cli as port_cli
@@ -36,17 +39,20 @@ def run(side: str, argv: list[str]) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
-def tree(d: pathlib.Path) -> dict[str, bytes]:
-    """Every file under ``d``, its own path replaced by a placeholder."""
+def tree(d: pathlib.Path, *parts: str) -> dict[str, bytes]:
+    """Every file under ``d`` (or under its subdirectories ``parts``), by
+    its path below ``d``, ``d`` itself replaced by a placeholder."""
     return {str(p.relative_to(d)): p.read_bytes().replace(
                 str(d).encode(), b"<side>")
-            for p in sorted(d.rglob("*")) if p.is_file()}
+            for top in ([d / x for x in parts] or [d])
+            for p in sorted(top.rglob("*")) if p.is_file()}
 
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """test_cli_tools.py's world, DBs built by each package, and the
     query classified through each CLI."""
+    jax_native.loaded()
     root = tmp_path_factory.mktemp("torch_cli")
     rng = np.random.default_rng(99)
     genomes = {"ACC_A.1": (bytes(rng.choice(ACGT, 3000)), 4),
@@ -247,7 +253,10 @@ def test_port_cli_command_equals_jax(world, case):
         if isinstance(want, dict):
             got = {k: got[k] for k in want}
         assert got == want
-    assert tree(world["jax"]) == tree(world["port"])
+    # what this case may touch: its own directory, and the shared DB and
+    # classifications, which it must leave as they are
+    assert (tree(world["jax"], case, "db", "cls_out")
+            == tree(world["port"], case, "db", "cls_out"))
 
 
 def test_port_version_and_unknown_command(capsys):

@@ -661,3 +661,117 @@ def test_k3_k4_long_read_columns_match_plain(syncmer, smer_len):
     torch.cuda.synchronize()
     _eq([s_got], [s_want])
     assert float(s_got.max()) > 0.5
+
+
+# ------------------------------------------------- reduced alphabet (K11)
+@pytest.fixture(scope="module")
+def reduced_world():
+    """``world``'s kind of genomes and reads, their metamers in the reduced
+    alphabet: deep AA groups whose rows sit at varied K11 distances."""
+    rng = np.random.default_rng(14)
+    core = rng.choice(ACGT, 1500)
+    genomes = []
+    for g in range(8):
+        c = core.copy()
+        w = np.arange(2, len(c), 3)
+        m = w[rng.random(len(w)) < 0.2]
+        c[m] = ACGT[(np.searchsorted(ACGT, c[m]) + rng.integers(1, 4, len(m))) % 4]
+        genomes.append(bytes(np.concatenate([c, rng.choice(ACGT, 3000)])))
+    codes, lens = encode_seqs_padded(genomes)
+    mm = encode.extract_metamers_plain(torch.from_numpy(codes),
+                                       torch.from_numpy(lens), reduced=True)
+    vals, taxs = [], []
+    for g in range(8):
+        v = np.unique(mm.value[g][mm.valid[g]].numpy().view(np.uint64))
+        vals.append(v)
+        taxs.append(np.full(len(v), 3 + g, np.int32))
+    values = np.concatenate(vals)
+    taxids = np.concatenate(taxs)
+    o = np.argsort(values, kind="stable")
+    reads = []
+    for i in range(192):
+        g = genomes[i % 8]
+        st = int(rng.integers(0, len(g) - 150))
+        r = bytearray(g[st:st + 150])
+        for _ in range(int(rng.integers(0, 3))):
+            r[int(rng.integers(0, 150))] = ACGT[int(rng.integers(0, 4))]
+        reads.append(bytes(r))
+    return values[o], taxids[o], reads
+
+
+@pytest.mark.parametrize("syncmer", [False, True])
+def test_k1_reduced_matches_plain(reduced_world, syncmer):
+    """K1's reduced variant: values equal the plain version's, no dna48."""
+    codes, lens, _, _ = _batch(reduced_world[2], "cuda")
+    before = build.launches["extract_metamers"]
+    got = encode.extract_metamers(codes, lens, syncmer=syncmer, reduced=True)
+    assert build.launches["extract_metamers"] == before + 1
+    want = encode.extract_metamers_plain(codes, lens, syncmer=syncmer,
+                                         reduced=True)
+    torch.cuda.synchronize()
+    assert got.dna48 is None and want.dna48 is None
+    _eq(got[:3], want[:3])
+    nums = got.value[got.valid] & 0xFFFFFFFF
+    assert int(((nums >> 28) & 15).max()) > 7  # 4-bit codon numbers kept
+
+
+@pytest.mark.parametrize("stash", [0, None])
+@pytest.mark.parametrize("cap", [3, 4096])
+def test_k11_search_scan_reduced_matches_plain(reduced_world, cap, stash,
+                                               monkeypatch):
+    """K11 (K2's reduced variant) against its plain version, with groups
+    cut at a cap of 3 or whole, with the stash and with every warp
+    walking again; it counts as search_scan_reduced, not search_scan."""
+    if stash is not None:
+        monkeypatch.setattr(pipeline, "stash_per_slot", lambda index: stash)
+    values, taxids, reads = reduced_world
+    index = build_dev_index(values, taxids, device="cuda", reduced=True)
+    codes, lens, _, _ = _batch(reads, "cuda")
+    mm = encode.extract_metamers(codes, lens, reduced=True)
+    args = (index, mm.value.reshape(-1), mm.valid.reshape(-1), None,
+            mm.value.shape[2], cap)
+    before = dict(build.launches)
+    got = search_scan(*args)
+    assert build.launches["search_scan_reduced"] == (
+        before["search_scan_reduced"] + 1)
+    assert build.launches["search_scan"] == before["search_scan"]
+    want = search_scan_plain(*args)
+    torch.cuda.synchronize()
+    _eq(got[:3], want[:3])
+    assert got.n_over_cap == want.n_over_cap
+    assert (got.n_over_cap > 0) == (cap == 3)
+    assert got.row.numel() > 0
+    if stash == 0:
+        assert got.n_rewalk > 0
+
+
+def test_k1_k11_empty_batch():
+    """An empty batch, and reads too short for a window: K1 launches
+    nothing and returns empty outputs; K11 returns no candidates."""
+    values = np.array([(5 << 32) | 7, (5 << 32) | 9, (6 << 32) | 1],
+                      np.uint64)
+    index = build_dev_index(values, np.array([3, 4, 3], np.int32),
+                            device="cuda", reduced=True)
+    for reads in ([], [b"ACGTAC", b"ACG"]):
+        codes, lens, _, _ = _batch(reads, "cuda")
+        before = build.launches["extract_metamers"]
+        mm = encode.extract_metamers(codes, lens, reduced=True)
+        assert build.launches["extract_metamers"] == before
+        assert mm.value.numel() == 0 and mm.dna48 is None
+        got = search_scan(index, mm.value.reshape(-1), mm.valid.reshape(-1),
+                          None, mm.value.shape[2], 4)
+        assert got.row.numel() == 0 and got.n_over_cap == 0
+
+
+def test_reduced_core_matches_plain(reduced_world):
+    """The reduced match core through K1 and K11 against the plain
+    versions: the sorted columns are equal."""
+    values, taxids, reads = reduced_world
+    index = build_dev_index(values, taxids, device="cuda", reduced=True)
+    t2s = torch.arange(64, dtype=torch.int32, device="cuda") % 5 + 1
+    batch = _batch(reads, "cuda")
+    got, gc = classify_core(index, t2s, *batch, cap=4096)
+    want, wc = classify_core(index, t2s, *batch, cap=4096, plain=True)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert gc == wc and gc["n_matches"] > 0

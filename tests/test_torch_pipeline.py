@@ -12,11 +12,19 @@ import time
 
 import pytest
 
+from helpers import jax_native
 from metabuli_tpu_torch.classify import classifier as port_classifier
 from metabuli_tpu_torch.classify.device_taxonomer import DeviceTaxonomer
 from metabuli_tpu_torch.cli import main as port_main
 from test_torch_classify import _golden_db
 from test_torch_slice7 import assert_same, outputs, run_both
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX side on its native path, wherever this module runs."""
+    jax_native.loaded()
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # 21 golden reads, 4 a batch: 6 batches

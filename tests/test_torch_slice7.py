@@ -8,12 +8,20 @@ import pathlib
 import numpy as np
 import pytest
 
+from helpers import jax_native
 from metabuli_tpu.cli import main as jax_main
 from metabuli_tpu.db.build import build_database
 from metabuli_tpu.params import BuildParams
 from metabuli_tpu_torch.classify import classifier as port_classifier
 from metabuli_tpu_torch.cli import main as port_main
 from test_torch_classify import _golden_db
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native():
+    """The JAX side on its native path, wherever this module runs."""
+    jax_native.loaded()
+
 
 ACGT = np.array(list(b"ACGT"), np.uint8)
 
