@@ -88,13 +88,46 @@ Phases, one line each; any failure exits non-zero:
             the resident chunk's buffers must stay under the --max-ram
             budget
 
+  format1   the port's CLI ``build --kmer-format 1`` of dbbuild's library
+            at the defaults (K1's old-format variant on the card), then K1
+            format 1 and K2 (its format flag) against their plain versions
+            on the first 8,192 smoke reads and the format-1 index, then
+            ``classify`` of the 65,536 reads against it on the device
+            taxonomer and again with --device-tax 0: the DB and
+            classifications digests and the classified count must equal
+            the JAX package's on the CPU (constants below), the two runs'
+            files must be equal, K1 format 1, K2, K3 and K4 launched;
+            reads/s beside dbbuild's classify
+  grouping  the port's CLI ``grouping`` (K1 on the card, the groups and
+            the propagation on the host) of the 65,536 smoke reads with
+            dbbuild's classifications of them (equal to the JAX package's)
+            and ``--dbdir`` its updated DB (taxonomy-aware majority LCA),
+            then again with ``--common-kmer-db`` (the port's
+            ``create-common-kmer-list`` of dbbuild's first DB) and
+            ``--neighbor-kmers 12``: each read_groups.tsv's digest and
+            group count must equal the JAX package's
+  uniref    a synthetic UniRef100 XML dump (tools.world.uniref_inputs:
+            32,768 entries of 300 residues in 4,096 UniRef90 and 512
+            UniRef50 clusters), ``create-uniref-db`` of it (K12 on
+            protein rows, one launch a 2,000,000-residue flush), K12 on
+            protein rows against its plain version on the first flush and
+            K12 on DNA rows on the first 8,192 DNA queries (150 bp), then
+            ``assign_uniref`` of 65,536 DNA reads (back-translated entry
+            fragments, 2 % base errors, 10 % random) and of 4,096 protein
+            fragments of 100 residues (auto-detected): the DB's diffIdx,
+            info and tree digests and both classifications digests must
+            equal the JAX package's on the CPU (constants below)
+
 Each CLI run of a phase starts with every launch count at 0 and reads
 them when it returns. The last three lines are the kernels' JSON record
-(K1-K4 and K11, each with its longread record and its launches in each
-phase's run; K11's ``launches`` are the reduced run's, the others' the
-classify run's; then the probes P1-P4 with their launches in the classify
-run, 0 since they are off the path, and their loop_ms and library_*
-times), nvidia-smi's name and power limit, and the device record.
+(K1-K4, K11, K1 format 1 and K12's two entry points, each with its
+launches in each phase's run; ``launches`` is the main run of each: the
+classify run for K1-K4, the reduced run for K11, the format1 classify
+run for K1 format 1, assign_uniref of the DNA reads for K12 on DNA rows
+and create-uniref-db for K12 on protein rows; then the probes P1-P4 with
+their launches in the classify run, 0 since they are off the path, and
+their loop_ms and library_* times), nvidia-smi's name and power limit,
+and the device record.
 """
 
 from __future__ import annotations
@@ -161,13 +194,47 @@ REDUCED_CLASSIFICATIONS_SHA256 = (
 # the chunked phase's --max-ram (GiB) and the chunks it gives the smoke DB
 CHUNKED_MAX_RAM = 2
 CHUNKED_CHUNKS = 4
+# the format1 phase: the JAX package's DB digest, classified count and
+# classifications digest for dbbuild's library built with --kmer-format 1
+# and the 65,536 reads, printed by
+#   JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py format1
+FORMAT1_DB_SHA256 = (
+    "ddaa8b0868d5b2e1f5fc9b4bb2e8fdee43c95287169e914a0a182f54b0287194")
+FORMAT1_CLASSIFIED = 58_984
+FORMAT1_CLASSIFICATIONS_SHA256 = (
+    "731474296ae78e408fd952ad90169c3ff0a9062e458989f0026ccb2b29253d79")
+# the grouping phase: the JAX package's read_groups.tsv digest and group
+# count, plain and with the common-k-mer list, printed by
+#   JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py grouping
+GROUPING = {"plain": (52_396, "ed01ab5a96b58af1be1223200f21779bcef9a173"
+                              "ad4d20cd15e17bde01c178ee"),
+            "common": (55_324, "1a3ffb1f42c828f88f15865209b3469b40a37f55"
+                               "7bf859339d1eef5dafb9fb10")}
+# the uniref phase: the JAX package's DB digests (diffIdx, info, and the
+# tree by tools.world.uniref_tree_sha256) and k-mers, and per query file
+# its classified count and classifications digest, printed by
+#   JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py uniref
+UNIREF_DB = {"kmers": 5_514_252, "diffIdx": (
+    "3bc936513d00001eecdec82b67c5fd12a85aa3d4e07e1382d4bce00461ff5678"),
+    "info": "46c58f962a850085518567658dceffb7aa0e2b8908e541b3f383de910f80bd85",
+    "unirefTree": (
+        "8c9eef9ae93a942d03a35175adb954c0fded69c36c142defbb9ea27360560521")}
+UNIREF_QUERIES = {
+    "dna": (65_536, 58_616, "c5a0e6c0300ce41d7f82c439e48cafca13449ae3ea6a40"
+                            "ff9532240fd2fe0967"),
+    "protein": (4_096, 3_687, "0c21a97f684705b90f97418fe10c09fc503465f82e343d"
+                              "2cf2990064f9d60b11")}
+UNIREF_FLUSH = 2_000_000  # create-uniref-db's residues a K12 launch
 
 # kernel name -> its CUDA functions, as the profiler names them
 KERNEL_FUNCTIONS = {"extract_metamers": ["extract_kernel"],
                     "search_scan": ["count_kernel", "write_kernel"],
                     "chain_matches": ["chain_kernel"],
                     "combine_paths": ["combine_kernel"],
-                    "search_scan_reduced": ["count_kernel", "write_kernel"]}
+                    "search_scan_reduced": ["count_kernel", "write_kernel"],
+                    "extract_metamers_f1": ["extract_kernel"],
+                    "extract_aa_kmers": ["aa_kmers_kernel"],
+                    "extract_aa_kmers_dna": ["aa_kmers_dna_kernel"]}
 
 KERNELS = [
     # name, source, the XLA block it replaces
@@ -182,6 +249,14 @@ KERNELS = [
     # K11: K2's reduced-alphabet variant, run only on a reduced DB
     ("search_scan_reduced", "metabuli_tpu_torch/csrc/search_scan.cu",
      "metabuli_tpu/ops/hamming.py:119"),
+    # K1's old-format variant, run only on a kmer_format 1 DB
+    ("extract_metamers_f1", "metabuli_tpu_torch/csrc/extract.cu",
+     "metabuli_tpu/ops/encode.py:239"),
+    # K12: the UniRef DBs' amino-acid k-mer scanners
+    ("extract_aa_kmers", "metabuli_tpu_torch/csrc/aa_kmers.cu",
+     "metabuli_tpu/ops/encode.py:342"),
+    ("extract_aa_kmers_dna", "metabuli_tpu_torch/csrc/aa_kmers.cu",
+     "metabuli_tpu/ops/encode.py:377"),
 ]
 # the kernels of the standard alphabet's classify path
 MAIN_KERNELS = ("extract_metamers", "search_scan", "chain_matches",
@@ -441,8 +516,8 @@ def sha256_of(*paths) -> str:
 
 def dbbuild_phase(tmp, tax, genomes, fq, dev):
     """The CLI's build, updateDB and classify (see the module docstring);
-    returns each step's kernel launch counts, and the library's list and
-    accession map."""
+    returns each step's kernel launch counts, the library's list and
+    accession map, and the classify run's reads/s."""
     from metabuli_tpu_torch.tools import world
 
     lib, acc = world.write_library(os.path.join(tmp, "library"), genomes,
@@ -509,7 +584,7 @@ def dbbuild_phase(tmp, tax, genomes, fq, dev):
                         f"package {UPDATED_CLASSIFIED}")
     if digest != UPDATED_CLASSIFICATIONS_SHA256:
         fail("dbbuild", "the classifications differ from the JAX package's")
-    return launches, lib, acc
+    return launches, lib, acc, s["reads"] / s["classify_s"]
 
 
 def reduced_phase(tmp, lib, acc, fq, dev, timings) -> dict:
@@ -676,6 +751,222 @@ def chunked_phase(tmp, fq, db, want_digest, dev) -> dict:
         fail("chunked", "the run's peak above the chunk buffers exceeds "
                         "the --max-ram budget")
     return counts
+
+
+def format1_phase(tmp, lib, acc, fq, dev, timings, dbbuild_rate) -> dict:
+    """``build --kmer-format 1`` of dbbuild's library, K1 format 1 and K2
+    on its index against their plain versions, and ``classify`` of the
+    smoke reads on both taxonomer paths (see the module docstring);
+    returns each run's launch counts."""
+    import torch
+
+    from metabuli_tpu_torch.classify import pipeline
+    from metabuli_tpu_torch.classify.classifier import Classifier
+    from metabuli_tpu_torch.ops import encode
+    from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
+    from metabuli_tpu_torch.params import ClassifyParams
+
+    t0 = time.perf_counter()
+    fdb = os.path.join(tmp, "format1_db")
+    s, counts = {}, {}
+    s["build"], counts["build"] = counted_cli(
+        ["build", fdb, lib, acc, "--taxonomy-path",
+         os.path.join(tmp, "skew_taxonomy"), "--db-date", DB_DATE,
+         "--kmer-format", "1"], dev)
+    b = s["build"]
+    got = sha256_of(*(os.path.join(fdb, f)
+                      for f in ("diffIdx", "info", "taxID_list")))
+    k1 = counts["build"]["extract_metamers_f1"]
+    say("format1", step="build", blocks=b["blocks"],
+        unique_kmers=b["unique_kmers"], k1_format1_launches=k1,
+        run_s=round(b["run_s"], 3), peak_mem_gib=round(b["peak_mem_gib"], 3),
+        stage_s={k: round(v, 3) for k, v in b["stage_s"].items()},
+        db_sha256=got, equal_jax=got == FORMAT1_DB_SHA256)
+    if k1 == 0 or counts["build"]["extract_metamers"] != 0:
+        fail("format1", f"build: K1 format 1 not the extraction: "
+                        f"{counts['build']}")
+    if got != FORMAT1_DB_SHA256:
+        fail("format1", "the format-1 DB differs from the JAX package's")
+
+    # K1 format 1 and K2 with its format flag on the first smoke batch
+    clf = Classifier(fdb, ClassifyParams(seq_mode=1, batch_reads=8192),
+                     device=dev)
+    idx = clf.dev_index
+    say("format1", db_load_s=round(clf.load_s, 3), cap=clf.cap,
+        index_rows=idx.n, mode=clf.mode, kmer_format=idx.kmer_format)
+    if idx.kmer_format != 1 or clf.mode != "device":
+        fail("format1", "the DB did not load as a format-1 index on the "
+                        "device taxonomer path")
+    metas, rows = next(clf._iter_batches(fq, None))
+    codes, lens = encode_seqs_padded([r[0] for r in rows])
+    codes = torch.from_numpy(codes).to(dev)
+    lens = torch.from_numpy(lens).to(dev)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    mm = record_kernel(
+        timings, "format1", "extract_metamers_f1",
+        lambda: encode.extract_metamers(codes, lens, kmer_format=1),
+        lambda: encode.extract_metamers_plain(codes, lens, kmer_format=1),
+        lambda r: nbytes([codes, lens, *r]))
+    W = mm.value.shape[2]
+    q = (mm.value.reshape(-1), mm.valid.reshape(-1), mm.dna48.reshape(-1))
+    record_kernel(
+        timings, "format1", "search_scan",
+        lambda: pipeline.search_scan(idx, *q, W, clf.cap),
+        lambda: pipeline.search_scan_plain(idx, *q, W, clf.cap),
+        scan_cost(idx, q, W, clf.cap, "format1"), shape="format1")
+    del clf, mm, q, codes, lens
+    torch.cuda.empty_cache()
+
+    digests = {}
+    for run, extra in (("classify", []), ("hosttax", ["--device-tax", "0"])):
+        out = os.path.join(tmp, f"format1_{run}")
+        s[run], counts[run] = counted_cli(
+            ["classify", fq, fdb, out, "f1", "--seq-mode", "1",
+             "--batch-reads", "8192", *extra], dev)
+        r = s[run]
+        digests[run] = sha256_of(os.path.join(out, "f1_classifications.tsv"))
+        say("format1", step=run, reads=r["reads"], classified=r["classified"],
+            reads_per_s=round(r["reads"] / r["classify_s"], 1),
+            classify_s=round(r["classify_s"], 3),
+            db_load_s=round(r["load_s"], 3),
+            peak_mem_gib=round(r["peak_mem_gib"], 3), launches=counts[run])
+        say("format1", step=run,
+            stage_ms={k: round(v, 3) for k, v in r["stage_ms"].items()})
+    rate = s["classify"]["reads"] / s["classify"]["classify_s"]
+    say("format1", classifications_sha256=digests["classify"],
+        equal_jax=digests["classify"] == FORMAT1_CLASSIFICATIONS_SHA256,
+        hosttax_equal=digests["hosttax"] == digests["classify"],
+        reads_per_s_over_dbbuild=round(rate / dbbuild_rate, 3),
+        phase_s=round(time.perf_counter() - t0, 3))
+    c = counts["classify"]
+    if min(c[n] for n in ("extract_metamers_f1", "search_scan",
+                          "chain_matches", "combine_paths")) == 0:
+        fail("format1", f"a kernel never launched: {c}")
+    if s["classify"]["classified"] != FORMAT1_CLASSIFIED:
+        fail("format1", f"{s['classify']['classified']} reads classified, "
+                        f"the JAX package {FORMAT1_CLASSIFIED}")
+    if digests["classify"] != FORMAT1_CLASSIFICATIONS_SHA256:
+        fail("format1", "the classifications differ from the JAX package's")
+    if digests["hosttax"] != digests["classify"]:
+        fail("format1", "--device-tax 0 differs from the device taxonomer")
+    shutil.rmtree(fdb, ignore_errors=True)
+    return counts
+
+
+def grouping_phase(tmp, fq, dev) -> dict:
+    """``grouping`` of the smoke reads with dbbuild's classifications,
+    plain and with a common-k-mer list (see the module docstring);
+    returns each run's launch counts."""
+    t0 = time.perf_counter()
+    cls = os.path.join(tmp, "updated_out", "updated_classifications.tsv")
+    common = os.path.join(tmp, "common_kmers")
+    s, counts = counted_cli(["create-common-kmer-list",
+                             os.path.join(tmp, "built_db"), common], dev)
+    say("grouping", step="common_kmers", kmers=s["kmers"],
+        run_s=round(s["run_s"], 3))
+    runs = {}
+    for run, extra in (("plain", []), ("common", [
+            "--common-kmer-db", common, "--neighbor-kmers", "12"])):
+        out = os.path.join(tmp, f"grouping_{run}")
+        s, runs[run] = counted_cli(
+            ["grouping", fq, cls, out, "--dbdir",
+             os.path.join(tmp, "updated_db"), *extra], dev)
+        digest = sha256_of(os.path.join(out, "read_groups.tsv"))
+        groups, want = GROUPING[run]
+        say("grouping", step=run, reads=s["reads"], groups=s["groups"],
+            rescued=s["rescued"], run_s=round(s["run_s"], 3),
+            reads_per_s=round(s["reads"] / s["run_s"], 1),
+            k1_launches=runs[run]["extract_metamers"],
+            peak_mem_gib=round(s["peak_mem_gib"], 3),
+            read_groups_sha256=digest, equal_jax=digest == want)
+        if runs[run]["extract_metamers"] == 0:
+            fail("grouping", f"{run}: K1 never launched")
+        if s["groups"] != groups or digest != want:
+            fail("grouping", f"{run}: the groups differ from the JAX "
+                             "package's")
+    say("grouping", phase_s=round(time.perf_counter() - t0, 3))
+    return runs
+
+
+def uniref_phase(tmp, dev, timings) -> dict:
+    """``create-uniref-db`` and ``assign_uniref`` of the synthetic UniRef
+    world, and K12's two entry points against their plain versions (see
+    the module docstring); returns each run's launch counts."""
+    import torch
+
+    from metabuli_tpu_torch.io import fasta
+    from metabuli_tpu_torch.ops import encode
+    from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
+    from metabuli_tpu_torch.tools import world
+
+    t0 = time.perf_counter()
+    xml, dna, prot, seqs = world.uniref_inputs(os.path.join(tmp, "uniref"))
+    udb = os.path.join(tmp, "uniref_db")
+    runs = {}
+    s, runs["db"] = counted_cli(["create-uniref-db", xml, udb], dev)
+    got = {"diffIdx": sha256_of(os.path.join(udb, "diffIdx")),
+           "info": sha256_of(os.path.join(udb, "info")),
+           "unirefTree": world.uniref_tree_sha256(
+               os.path.join(udb, "unirefTree"))}
+    say("uniref", step="db", entries=len(seqs), clusters=s["clusters"],
+        kmers=s["kmers"], run_s=round(s["run_s"], 3),
+        k12_launches=runs["db"]["extract_aa_kmers"],
+        peak_mem_gib=round(s["peak_mem_gib"], 3),
+        equal_jax={k: v == UNIREF_DB[k] for k, v in got.items()})
+    if runs["db"]["extract_aa_kmers"] == 0:
+        fail("uniref", "create-uniref-db: K12 never launched")
+    if s["kmers"] != UNIREF_DB["kmers"] or any(
+            v != UNIREF_DB[k] for k, v in got.items()):
+        fail("uniref", "the UniRef DB differs from the JAX package's")
+
+    # K12 on the DB's first flush and on the first 8,192 DNA queries
+    n, total = 0, 0
+    while total < UNIREF_FLUSH:
+        total += len(seqs[n])
+        n += 1
+    codes, lens = encode.encode_aa_seqs_padded(seqs[:n], 512)
+    codes = torch.from_numpy(codes).to(dev)
+    lens = torch.from_numpy(lens).to(dev)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    say("uniref", shape="flush", rows=n, residues=total,
+        slots=codes.shape[0] * (codes.shape[1] - encode.AA_K + 1))
+    record_kernel(timings, "uniref", "extract_aa_kmers",
+                  lambda: encode.extract_aa_kmers(codes, lens),
+                  lambda: encode.extract_aa_kmers_plain(codes, lens),
+                  lambda r: nbytes([codes, lens, *r]))
+    reads = [r.seq for _, r in zip(range(8192), fasta.read_records(dna))]
+    dcodes, dlens = encode_seqs_padded(reads)
+    dcodes = torch.from_numpy(dcodes).to(dev)
+    dlens = torch.from_numpy(dlens).to(dev)
+    say("uniref", shape="reads", rows=len(reads), bases=dcodes.shape[1])
+    record_kernel(timings, "uniref", "extract_aa_kmers_dna",
+                  lambda: encode.extract_aa_kmers_dna(dcodes, dlens),
+                  lambda: encode.extract_aa_kmers_dna_plain(dcodes, dlens),
+                  lambda r: nbytes([dcodes, dlens, *r]))
+    del codes, lens, dcodes, dlens
+    torch.cuda.empty_cache()
+
+    for run, path in (("dna", dna), ("protein", prot)):
+        out = os.path.join(tmp, f"uniref_{run}")
+        s, runs[run] = counted_cli(["assign_uniref", path, udb, out], dev)
+        digest = sha256_of(os.path.join(out, "uniref_classifications.tsv"))
+        queries, classified, want = UNIREF_QUERIES[run]
+        say("uniref", step=run, queries=s["queries"],
+            classified=s["classified"], run_s=round(s["run_s"], 3),
+            queries_per_s=round(s["queries"] / s["run_s"], 1),
+            launches={k: v for k, v in runs[run].items() if v},
+            peak_mem_gib=round(s["peak_mem_gib"], 3),
+            classifications_sha256=digest, equal_jax=digest == want)
+        k12 = "extract_aa_kmers_dna" if run == "dna" else "extract_aa_kmers"
+        if runs[run][k12] == 0:
+            fail("uniref", f"{run}: K12 never launched")
+        if (s["queries"], s["classified"], digest) != (queries, classified,
+                                                       want):
+            fail("uniref", f"{run}: the classifications differ from the JAX "
+                           "package's")
+    say("uniref", phase_s=round(time.perf_counter() - t0, 3))
+    shutil.rmtree(udb, ignore_errors=True)
+    return runs
 
 
 def parity(clf, metas, rows, resident, phase) -> None:
@@ -972,7 +1263,8 @@ def main() -> int:
             fail("tiny", "expected 120 classified reads split 50/50")
 
         # ---- dbbuild: the CLI's build, updateDB and classify
-        build_launches, lib, acc = dbbuild_phase(tmp, tax, genomes, fq, dev)
+        build_launches, lib, acc, dbbuild_rate = dbbuild_phase(
+            tmp, tax, genomes, fq, dev)
 
         # ---- classify: the CLI on 65,536 reads, kernels counted
         s, counts = counted_cli(["classify", fq, db,
@@ -1005,6 +1297,12 @@ def main() -> int:
         red_launches, red_build_k1 = reduced_phase(tmp, lib, acc, fq, dev,
                                                    timings)
         ch_launches = chunked_phase(tmp, fq, db, smoke_digest, dev)
+
+        # ---- format1, grouping, uniref
+        f1_launches = format1_phase(tmp, lib, acc, fq, dev, timings,
+                                    dbbuild_rate)
+        grp_launches = grouping_phase(tmp, fq, dev)
+        uni_launches = uniref_phase(tmp, dev, timings)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1015,15 +1313,29 @@ def main() -> int:
         launches_build=build_launches["build"]["extract_metamers"],
         launches_update=build_launches["update"]["extract_metamers"],
         launches_reduced_build=red_build_k1)
+    timings["extract_metamers_f1"].update(
+        launches_format1_build=f1_launches["build"]["extract_metamers_f1"])
+    phase_runs = {"classify": counts, "longread": lr_launches,
+                  "hosttax": ht_launches, "reduced": red_launches,
+                  "chunked": ch_launches,
+                  "format1": f1_launches["classify"],
+                  "format1_hosttax": f1_launches["hosttax"],
+                  "grouping": grp_launches["plain"],
+                  "grouping_common": grp_launches["common"],
+                  "uniref_db": uni_launches["db"],
+                  "uniref_dna": uni_launches["dna"],
+                  "uniref_protein": uni_launches["protein"]}
     for name, _, _ in KERNELS:
-        timings[name].update(launches_classify=counts[name],
-                             launches_longread=lr_launches[name],
-                             launches_hosttax=ht_launches[name],
-                             launches_reduced=red_launches[name],
-                             launches_chunked=ch_launches[name])
-    # the main path of each kernel: K11's is the reduced run
-    main_run = {name: red_launches if name == "search_scan_reduced"
-                else counts for name, _, _ in KERNELS}
+        timings[name].update({f"launches_{phase}": run[name]
+                              for phase, run in phase_runs.items()})
+    # the main path of each kernel: K11's is the reduced run, K1 format
+    # 1's the format1 classify run, K12's create-uniref-db (protein rows)
+    # and assign_uniref of the DNA reads
+    main_run = {name: counts for name, _, _ in KERNELS} | {
+        "search_scan_reduced": red_launches,
+        "extract_metamers_f1": f1_launches["classify"],
+        "extract_aa_kmers": uni_launches["db"],
+        "extract_aa_kmers_dna": uni_launches["dna"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_run[name][name], **timings[name]}

@@ -80,10 +80,11 @@ class ChunkedIndex:
 
     def __init__(self, values: np.ndarray, taxids: np.ndarray,
                  budget_bytes: int, reduced: bool = False, device="cpu",
-                 min_chunks: int = 1):
+                 min_chunks: int = 1, kmer_format: int = 2):
         need = len(values) * BYTES_PER_ROW
         self.n_chunks = max(1, -(-need // max(1, budget_bytes)), min_chunks)
         self.reduced = reduced
+        self.kmer_format = kmer_format
         self.device = torch.device(device)
         # past one chunk a row, more chunks only add empty ones
         bounds = chunk_bounds(values, min(self.n_chunks, max(1, len(values))),
@@ -92,8 +93,8 @@ class ChunkedIndex:
         cuda = self.device.type == "cuda"
         self.chunks: list[DevIndex] = []
         for a, b in self.bounds:
-            ix = build_dev_index(values[a:b], taxids[a:b], device=device,
-                                 reduced=reduced)
+            ix = build_dev_index(values[a:b], taxids[a:b], kmer_format,
+                                 device=device, reduced=reduced)
             if cuda:  # built on the card, kept pinned on the host
                 ix = dataclasses.replace(ix, **{
                     k: pin(getattr(ix, k)) for k in TABLES

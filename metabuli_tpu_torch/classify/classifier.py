@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..csrc import build
 from ..db.index import MetamerIndex
 from ..io import fasta
 from ..io.report import Reporter
@@ -141,11 +142,7 @@ def overlap_s(a, b) -> float:
 
 class Classifier:
     def __init__(self, db_dir: str, params: ClassifyParams, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the kernels run only on one; pass "
-                "device='cpu' (--device cpu) for the plain PyTorch versions")
+        self.device = build.device(device)
         self.par = params
         t0 = time.perf_counter()
         self.index = MetamerIndex.load(db_dir)
@@ -158,8 +155,6 @@ class Classifier:
         params.skip_redundancy = dbp.skip_redundancy
         if dbp.accession_level == 0 and params.accession_level == 1:
             params.accession_level = 0
-        if params.kmer_format != 2:
-            raise not_ported("kmer_format 1 databases", "item 14")
         reduced = bool(params.reduced_aa)
         self.taxonomy = self.index.taxonomy
         tp = TaxonomerParams(
@@ -213,7 +208,7 @@ class Classifier:
         if rows * BYTES_PER_ROW > budget or min_chunks > 1:
             self.dev_index = ChunkedIndex(
                 values, taxids, budget, reduced=reduced, device=self.device,
-                min_chunks=min_chunks)
+                min_chunks=min_chunks, kmer_format=params.kmer_format)
         else:
             self.dev_index = build_dev_index(
                 values, taxids, kmer_format=params.kmer_format,

@@ -1,7 +1,7 @@
 """Device index and match core: encoded reads -> sorted match columns.
 
-The counterpart of ``metabuli_tpu.classify.pipeline`` for ``kmer_format``
-2, in its plain table layout:
+The counterpart of ``metabuli_tpu.classify.pipeline``, in its plain table
+layout:
 
   grest  i32 [G]   permuted amino-acid key bits below the bucket prefix
   gstart i32 [G]   first row of the group
@@ -24,6 +24,13 @@ by the 32-bit amino-acid part (``value >> 32``, permuted mod 2^32) and
 scores a row on its 32-bit codon-number part, the high word of
 ``taxdna`` (the reference package's ``lo32``), through K11's table
 (``ops.hamming``); it has no d48.
+
+An old-format DB (``kmer_format`` 1) has the same layout: its amino-acid
+key is base-21 where format 2's is 5 bits a residue, which changes no
+grouping or search, and its metamers pack their codons little-endian, so
+its d48 does too (``expand_db_dna48``) and the per-codon h16 words take
+the other frame orientation (``(frame < 3) != (kmer_format != 2)``, K2's
+format flag).
 
 ``classify_core`` takes a ``DevIndex`` or a ``chunked.ChunkedIndex``,
 whose chunks are copied in one at a time and scanned in turn.
@@ -103,16 +110,26 @@ def _expansion_table() -> np.ndarray:
     return exp
 
 
-def expand_db_dna48(values: torch.Tensor) -> torch.Tensor:
+def expand_db_dna48(values: torch.Tensor,
+                    kmer_format: int = 2) -> torch.Tensor:
     """Per-row raw-base codons (the Hamming operand of the candidate scan):
     same-AA metamers differ only in their codons' bases, so the reference
-    LUT distances reduce to base Hamming (see the reference package)."""
+    LUT distances reduce to base Hamming (see the reference package).
+    Format 1 takes its amino acids as base-21 digits and its codons
+    little-endian (codon i at bits 3i of the value and 6i of d48)."""
     exp = torch.as_tensor(_expansion_table(), device=values.device)
     d48 = torch.zeros_like(values)
+    if kmer_format == 2:
+        for i in range(8):
+            aa_i = srl(values, 24 + 5 * (7 - i)) & 31
+            num_i = srl(values, 3 * (7 - i)) & 7
+            d48 |= exp[torch.clamp(aa_i, max=20) * 8 + num_i] << (6 * (7 - i))
+        return d48
+    aa = srl(values, 24)
     for i in range(8):
-        aa_i = srl(values, 24 + 5 * (7 - i)) & 31
-        num_i = srl(values, 3 * (7 - i)) & 7
-        d48 |= exp[torch.clamp(aa_i, max=20) * 8 + num_i] << (6 * (7 - i))
+        aa_i = torch.div(aa, 21 ** i, rounding_mode="floor") % 21
+        num_i = srl(values, 3 * i) & 7
+        d48 |= exp[aa_i * 8 + num_i] << (6 * i)
     return d48
 
 
@@ -132,6 +149,7 @@ class DevIndex:
     max_group: int         # deepest group, rows
     rows_per_hit: float    # size-biased mean group: sum |g|^2 / sum |g|
     reduced: bool = False  # the reduced alphabet (K11 scores it)
+    kmer_format: int = 2   # 1: old-format packing (K2's format flag)
 
     @property
     def device(self) -> torch.device:
@@ -156,7 +174,7 @@ class DevIndex:
 
     @classmethod
     def _finish(cls, grest, gstart, gend, taxdna, d48, prefix,
-                reduced: bool = False) -> "DevIndex":
+                reduced: bool = False, kmer_format: int = 2) -> "DevIndex":
         pb = int(prefix.numel() - 1).bit_length() - 1
         max_bucket = int((prefix[1:] - prefix[:-1]).max()) if pb else 1
         iters = max(1, int(np.ceil(np.log2(max(2, max_bucket + 1)))))
@@ -167,7 +185,7 @@ class DevIndex:
                    n=int(taxdna.numel()), prefix_bits=pb,
                    search_iters=iters, max_group=max(max_group, 1),
                    rows_per_hit=int((size * size).sum()) / max(rows, 1),
-                   reduced=reduced)
+                   reduced=reduced, kmer_format=kmer_format)
 
     def tables(self):
         return (self.grest, self.gstart, self.gend, self.taxdna, self.d48,
@@ -183,10 +201,8 @@ def build_dev_index(values: np.ndarray, taxids: np.ndarray,
                     kmer_format: int = 2, device="cpu",
                     reduced: bool = False) -> DevIndex:
     """Group, permute and bucket a sorted u64 table on ``device``."""
-    if kmer_format != 2:
-        raise NotImplementedError(
-            "kmer_format 1 databases are not ported yet "
-            "(ROADMAP.md Queue 1, item 14)")
+    if kmer_format not in (1, 2):
+        raise ValueError(f"unsupported kmer_format {kmer_format}")
     if len(values) >= 1 << 31:  # rows are int32 indices on the device
         raise ValueError(f"{len(values)} rows: the device index holds < 2^31")
     dev = torch.device(device)
@@ -220,10 +236,10 @@ def build_dev_index(values: np.ndarray, taxids: np.ndarray,
     prefix = torch.zeros((1 << pb) + 1, dtype=torch.int64, device=dev)
     prefix[1:] = torch.cumsum(counts, 0)
     taxdna = ((v & 0xFFFFFFFF) << 32) | (tx.to(torch.int64) & 0xFFFFFFFF)
-    d48 = None if reduced else expand_db_dna48(v)
+    d48 = None if reduced else expand_db_dna48(v, kmer_format)
     del v, tx
     return DevIndex._finish(grest, gstart, gend, taxdna, d48,
-                            prefix.to(torch.int32), reduced)
+                            prefix.to(torch.int32), reduced, kmer_format)
 
 
 # ------------------------------------------------------------------ K2
@@ -298,7 +314,7 @@ def search_scan_plain(index: DevIndex, q_value: torch.Tensor,
     else:
         hsum, fwd, rev = _hamming48(q_dna48[slot], index.d48[row])
     frame = torch.div(slot, W, rounding_mode="floor") % 6
-    h16 = torch.where(frame < 3, fwd, rev)
+    h16 = torch.where((frame < 3) != (index.kmer_format != 2), fwd, rev)
     min_h = torch.full((Q,), 255, dtype=torch.int64, device=dev)
     min_h.scatter_reduce_(0, slot, hsum, reduce="amin")
     keep = hsum <= torch.clamp(2 * min_h, max=7)[slot]
@@ -373,7 +389,7 @@ def search_scan(index: DevIndex, q_value: torch.Tensor,
         t_word.data_ptr(), index.prefix_bits, cap, start.data_ptr(),
         wlen.data_ptr(), cut.data_ptr(), acc.data_ptr(),
         stash.data_ptr(), n_stash, top.data_ptr(), wstash.data_ptr(), *lut,
-        st)
+        index.kmer_format, st)
     build.check(rc, name)
     build.launches[name] += 1
     scan = torch.cumsum(acc, 0)
@@ -384,7 +400,8 @@ def search_scan(index: DevIndex, q_value: torch.Tensor,
             q_word.data_ptr(), Q, W, t_word.data_ptr(),
             start.data_ptr(), wlen.data_ptr(), cut.data_ptr(),
             scan.data_ptr(), stash.data_ptr(), wstash.data_ptr(),
-            row.data_ptr(), slot.data_ptr(), pay.data_ptr(), *lut, st)
+            row.data_ptr(), slot.data_ptr(), pay.data_ptr(), *lut,
+            index.kmer_format, st)
         build.check(rc, name)
     return Candidates(row, slot, pay, with_over - total,
                       with_rewalk - with_over)
@@ -440,7 +457,7 @@ def classify_core(index, tax2species: torch.Tensor,
     scan = search_scan_plain if plain else search_scan
     reduced = index.reduced
     mm = extract(codes, lens, syncmer=syncmer, smer_len=smer_len,
-                 reduced=reduced)
+                 reduced=reduced, kmer_format=index.kmer_format)
     mark("extract")
     B, _, W = mm.value.shape
     q = (mm.value.reshape(-1), mm.valid.reshape(-1),

@@ -8,11 +8,11 @@ command for command, with the same names, arguments and outputs:
   metabuli_tpu_torch updateDB <o:DBDIR> <i:FASTA list> <i:accession2taxid> --old-db DIR
   metabuli_tpu_torch <command> ...   (``--help`` lists them all)
 
-``classify``, ``build``, ``updateDB`` and ``filter`` take ``--device
+``classify``, ``build``, ``updateDB``, ``filter``, ``grouping`` (K1),
+``create-uniref-db`` and ``assign_uniref`` (K12) take ``--device
 cuda|cpu`` (default cuda: without a card they raise; cpu runs the plain
 PyTorch versions of the kernels). ``classify`` has no multi-process
-flags (item 13). ``grouping``, ``create-uniref-db`` and ``assign_uniref``
-raise ``NotImplementedError`` (item 12: their extraction kernels).
+flags (item 13).
 """
 
 from __future__ import annotations
@@ -538,16 +538,18 @@ def _uniref(argv, mode):
         ap.add_argument("dbdir", nargs="?", default="")
         ap.add_argument("--uniref-xml", default="",
                         help="UniRef XML path (reference flag name)")
+        ap.add_argument("--device", default="cuda", help=DEVICE_HELP)
         args = ap.parse_args(argv)
         if args.uniref_xml and not args.dbdir:
             args.dbdir = args.xml
             args.xml = args.uniref_xml
         if not args.xml or not args.dbdir:
             ap.error("need <xml> <dbdir> (or --uniref-xml <xml> <dbdir>)")
-        from .classify.classifier import not_ported
+        from .uniref.classifier import create_uniref_db
 
-        raise not_ported("create-uniref-db (uniref/classifier.py, its "
-                         "extraction K12)", "item 12")
+        print(json.dumps(create_uniref_db(args.xml, args.dbdir,
+                                          device=args.device)))
+        return 0
     if mode == "tree":
         ap = argparse.ArgumentParser(prog="metabuli_tpu_torch create-uniref-tree")
         ap.add_argument("xml")
@@ -568,11 +570,14 @@ def _uniref(argv, mode):
     ap.add_argument("outdir")
     ap.add_argument("--protein", type=int, default=-1,
                     help="1=protein, 0=DNA, -1=auto-detect")
-    ap.parse_args(argv)
-    from .classify.classifier import not_ported
+    ap.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    args = ap.parse_args(argv)
+    from .uniref.classifier import UnirefClassifier
 
-    raise not_ported("assign_uniref (uniref/classifier.py, its extraction "
-                     "K12)", "item 12")
+    clf = UnirefClassifier(args.dbdir, device=args.device)
+    protein = None if args.protein == -1 else bool(args.protein)
+    print(json.dumps(clf.classify_file(args.query, args.outdir, protein)))
+    return 0
 
 
 def _make_aa_offset(argv):
@@ -670,11 +675,26 @@ def _grouping(argv):
                          "pre-grouping k-mer suppression")
     ap.add_argument("--dbdir", default="",
                     help="database dir (for taxonomy-aware majority LCA)")
-    ap.parse_args(argv)
-    from .classify.classifier import not_ported
+    ap.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    args = ap.parse_args(argv)
+    from .readgroup.group import group_reads_file
 
-    raise not_ported("grouping (readgroup/group.py, its extraction K12)",
-                     "item 12")
+    min_edge = args.min_shared_kmers
+    if min_edge is None:
+        min_edge = args.min_edge if args.min_edge is not None else 2
+    taxonomy = None
+    if args.dbdir:
+        from .db.index import load_db_taxonomy
+
+        taxonomy = load_db_taxonomy(args.dbdir)
+    print(json.dumps(group_reads_file(
+        args.query, args.classifications, args.outdir, min_edge,
+        weight_mode=args.weight_mode, min_vote_score=args.min_vote_score,
+        score_col=args.score_col, taxonomy=taxonomy,
+        majority_thr=args.majority_thr,
+        neighbor_kmers=args.neighbor_kmers,
+        common_kmer_db=args.common_kmer_db, device=args.device)))
+    return 0
 
 
 def _kmer_list(argv, mode):

@@ -40,10 +40,13 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches since the last reset: K1-K4 of the classify
-# path (K1 of either alphabet), K11 (K2's reduced-alphabet variant), then
+# path (K1 of either alphabet), K11 (K2's reduced-alphabet variant), K1
+# for old-format (kmer_format 1) DBs, K12's two scanners (UniRef), then
 # the probes P1-P4 (tools/probes.py)
 launches = {"extract_metamers": 0, "search_scan": 0, "chain_matches": 0,
             "combine_paths": 0, "search_scan_reduced": 0,
+            "extract_metamers_f1": 0, "extract_aa_kmers": 0,
+            "extract_aa_kmers_dna": 0,
             "gather_tile_sum": 0, "merge_join_sum": 0, "smoke_double": 0,
             "stream_sum": 0}
 
@@ -55,29 +58,36 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
     # codes, lens, B, L, W, syncmer, smer_len, aa_tab, num_tab,
-    # value, pos, valid, dna48, stream
+    # value, pos, valid, dna48, kmer_format, stream
     "mtb_extract_metamers": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
-                             _P, _P, _P, _P, _P],
+                             _P, _P, _P, _P, _I, _P],
     # the same, dna48 unused (null)
     "mtb_extract_metamers_reduced": [_P, _P, _I, _I, _I, _I, _I, _P, _P,
-                                     _P, _P, _P, _P, _P],
+                                     _P, _P, _P, _P, _I, _P],
     # value, valid, dna48, Q, W, grest, gstart, gend, prefix, d48,
     # prefix_bits, cap, start, wlen, cut, acc, stash, stash_cap,
-    # stash_top, wstash, stream
+    # stash_top, wstash, kmer_format, stream
     "mtb_search_count": [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I,
-                         _P, _P, _P, _P, _P, _L, _P, _P, _P],
+                         _P, _P, _P, _P, _P, _L, _P, _P, _I, _P],
     # dna48, Q, W, d48, start, wlen, cut, scan, stash, wstash,
-    # out_row, out_slot, out_pay, stream
+    # out_row, out_slot, out_pay, kmer_format, stream
     "mtb_search_write": [_P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P],
+                         _P, _I, _P],
     # K11: the same two launches for the reduced alphabet; value stands in
     # for dna48 (its low 32 bits are the query's codon numbers), taxdna
     # for d48 (its high 32 bits the row's), then the 16x16 int32 LUT
     "mtb_search_count_reduced": [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P,
                                  _I, _I, _P, _P, _P, _P, _P, _L, _P, _P,
-                                 _P, _P],
+                                 _P, _I, _P],
     "mtb_search_write_reduced": [_P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _P],
+                                 _P, _P, _P, _P, _I, _P],
+    # K12: codes, lens, B, L, W, k, syncmer, smer_len, value, pos, valid,
+    # stream
+    "mtb_extract_aa_kmers": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                             _P],
+    # codes, lens, B, L, W, k, aa_tab, value, pos, valid, stream
+    "mtb_extract_aa_kmers_dna": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _P],
     # M, qid, species, frame, pos, ham, dna, h16,
     # min_depth, n_species, max_shift, kmer_format,
     # p_score, p_start, p_ham, p_depth, p_sh16, emit, stream
@@ -143,6 +153,18 @@ def build() -> str:
                                + "\n".join(failed)[-6000:])
         os.replace(tmp, SO)
         return SO
+
+
+def device(dev="cuda") -> torch.device:
+    """``dev`` as a ``torch.device``; raises for a CUDA device when there
+    is no card (the kernels run only on one: CPU runs ask for the plain
+    versions with "cpu")."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the kernels run only on one; pass "
+            "device='cpu' (--device cpu) for the plain PyTorch versions")
+    return dev
 
 
 def get_lib():

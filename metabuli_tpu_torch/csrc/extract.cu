@@ -36,6 +36,12 @@
 // decoded codon keeps a 4-bit codon-number field in both variants: the
 // reference's scanner packs 3 bits and truncates reduced codon numbers
 // above 7 (metabuli_tpu/ops/encode.py:84-91), which this layout avoids.
+//
+// Old-format DBs (kmer_format 1, metabuli_tpu/ops/encode.py:239-254) are
+// the same kernel with Old = true: the same eight codons packed
+// little-endian, the codon of slot j (format 2's j-th most significant)
+// weighing 21^j in a base-21 amino-acid sum (16^j reduced), its codon
+// number at bits 3j (4j reduced) and its bases at dna48 bits 6j.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,7 +57,7 @@ constexpr int WORDS = (BASES + 2 + 3) / 4 + 1;
 constexpr int THREADS = 128;  // a full chunk: 2 windows a thread and frame
 constexpr uint32_t VALID = 1u << 15;
 
-template <bool Reduced>
+template <bool Reduced, bool Old>
 __global__ void __launch_bounds__(THREADS)
 extract_kernel(const uint8_t* __restrict__ codes,
                const int32_t* __restrict__ lens, int L, int W, int chunks,
@@ -126,14 +132,21 @@ extract_kernel(const uint8_t* __restrict__ codes,
     const int f = i / cw, wl = i - f * cw;
     const bool reverse = f >= 3;
     // slot j (most significant first): forward codon w+j, reverse w+7-j
-    uint64_t aa_part = 0, dna_part = 0, d48 = 0;
+    uint64_t aa_part = 0, dna_part = 0, d48 = 0, weight = 1;
     bool ok = true;
     for (int j = 0; j < K; ++j) {
       const uint32_t code = s_cod[f][reverse ? wl + K - 1 - j : wl + j];
       ok = ok && (code & VALID);
-      aa_part = aa_part << AA_BITS | (code >> 10 & 31);
-      dna_part = dna_part << NUM_BITS | (code >> 6 & 15);
-      if (!Reduced) d48 = d48 << 6 | (code & 63);
+      if (Old) {  // slot j the j-th least significant
+        aa_part += (code >> 10 & 31) * weight;
+        weight *= Reduced ? 16 : 21;
+        dna_part |= (uint64_t)(code >> 6 & 15) << NUM_BITS * j;
+        if (!Reduced) d48 |= (uint64_t)(code & 63) << 6 * j;
+      } else {
+        aa_part = aa_part << AA_BITS | (code >> 10 & 31);
+        dna_part = dna_part << NUM_BITS | (code >> 6 & 15);
+        if (!Reduced) d48 = d48 << 6 | (code & 63);
+      }
     }
     if (ok && syncmer) {
       // keep iff the FIRST minimal s-mer sits at offset 0 or 8-s
@@ -164,27 +177,35 @@ template <bool Reduced>
 int launch(const uint8_t* codes, const int32_t* lens, int B, int L, int W,
            int syncmer, int smer_len, const int32_t* aa_tab,
            const int32_t* num_tab, int64_t* value, int32_t* pos, bool* valid,
-           int64_t* dna48, cudaStream_t stream) {
+           int64_t* dna48, int kmer_format, cudaStream_t stream) {
   const int chunks = (W + CHUNK - 1) / CHUNK;
   const int64_t ctas = (int64_t)B * chunks;  // grid x holds up to 2^31 - 1
-  if (B < 1 || W < 1 || ctas > 0x7fffffff || smer_len < 1 || smer_len > K)
+  if (B < 1 || W < 1 || ctas > 0x7fffffff || smer_len < 1 || smer_len > K ||
+      (kmer_format != 1 && kmer_format != 2))
     return (int)cudaErrorInvalidValue;
-  extract_kernel<Reduced><<<(unsigned)ctas, THREADS, 0, stream>>>(
-      codes, lens, L, W, chunks, syncmer, smer_len, aa_tab, num_tab, value,
-      pos, valid, dna48);
+  if (kmer_format == 2)
+    extract_kernel<Reduced, false><<<(unsigned)ctas, THREADS, 0, stream>>>(
+        codes, lens, L, W, chunks, syncmer, smer_len, aa_tab, num_tab, value,
+        pos, valid, dna48);
+  else
+    extract_kernel<Reduced, true><<<(unsigned)ctas, THREADS, 0, stream>>>(
+        codes, lens, L, W, chunks, syncmer, smer_len, aa_tab, num_tab, value,
+        pos, valid, dna48);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// kmer_format: 2, or 1 for the old-format packing
 extern "C" int mtb_extract_metamers(const uint8_t* codes, const int32_t* lens,
                                     int B, int L, int W, int syncmer,
                                     int smer_len, const int32_t* aa_tab,
                                     const int32_t* num_tab, int64_t* value,
                                     int32_t* pos, bool* valid, int64_t* dna48,
-                                    cudaStream_t stream) {
+                                    int kmer_format, cudaStream_t stream) {
   return launch<false>(codes, lens, B, L, W, syncmer, smer_len, aa_tab,
-                       num_tab, value, pos, valid, dna48, stream);
+                       num_tab, value, pos, valid, dna48, kmer_format,
+                       stream);
 }
 
 // the reduced alphabet: dna48 is not written (may be null)
@@ -192,7 +213,7 @@ extern "C" int mtb_extract_metamers_reduced(
     const uint8_t* codes, const int32_t* lens, int B, int L, int W,
     int syncmer, int smer_len, const int32_t* aa_tab, const int32_t* num_tab,
     int64_t* value, int32_t* pos, bool* valid, int64_t* dna48,
-    cudaStream_t stream) {
+    int kmer_format, cudaStream_t stream) {
   return launch<true>(codes, lens, B, L, W, syncmer, smer_len, aa_tab,
-                      num_tab, value, pos, valid, dna48, stream);
+                      num_tab, value, pos, valid, dna48, kmer_format, stream);
 }

@@ -48,6 +48,12 @@
 // ORed into the 16-bit words with the reference's spill quirk kept (a
 // distance of 4 spills into the next codon's lane).
 //
+// Old-format DBs (kmer_format 1) pack a metamer's codons little-endian
+// (extract.cu), so a dna48 word holds slot j at bits 6j, not 6(7-j): the
+// per-codon counts of the h16 word take the other frame orientation,
+// (frame < 3) != old_format, as in metabuli_tpu/classify/pipeline.py:660-663
+// and chain.cu's reading of them. K11 takes the same flag.
+//
 // Launches: mtb_search_count writes per slot (window start, length, Hamming
 // cutoff), per warp (kept pairs into acc[w], the over-cap slots added to
 // acc[n_warps], the warps that found the pool full to acc[n_warps + 1],
@@ -153,7 +159,7 @@ __device__ __forceinline__ Pair pair_at(const FlatWindows& fw, long long f0,
                                         int lane, int len, int32_t gs,
                                         uint64_t q, int frame,
                                         const int64_t* __restrict__ d48,
-                                        const uint8_t* lut) {
+                                        const uint8_t* lut, bool old_format) {
   Pair p;
   long long f = f0 + lane;
   p.live = f < fw.total;
@@ -166,7 +172,8 @@ __device__ __forceinline__ Pair pair_at(const FlatWindows& fw, long long f0,
   p.h = 0;
   p.h16 = 0;
   if (p.live)
-    p.h = distance<Reduced>(qj, d48, p.row, p.frame < 3, lut, &p.h16);
+    p.h = distance<Reduced>(qj, d48, p.row, (p.frame < 3) != old_format,
+                            lut, &p.h16);
   return p;
 }
 
@@ -178,11 +185,12 @@ template <bool Reduced, class Put>
 __device__ __forceinline__ long long walk_kept(
     const FlatWindows& fw, int lane, int len, int32_t gs, uint64_t q,
     int frame, int c, const int64_t* __restrict__ d48, const uint8_t* lut,
-    Put put) {
+    bool old_format, Put put) {
   long long kept = 0;
   unsigned lt = (1u << lane) - 1;
   for (long long f0 = 0; f0 < fw.total; f0 += 32) {
-    Pair p = pair_at<Reduced>(fw, f0, lane, len, gs, q, frame, d48, lut);
+    Pair p = pair_at<Reduced>(fw, f0, lane, len, gs, q, frame, d48, lut,
+                              old_format);
     int cj = __shfl_sync(kFull, c, p.j);
     bool keep = p.live && p.h <= cj;
     unsigned b = __ballot_sync(kFull, keep);
@@ -218,7 +226,7 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
              int2* __restrict__ stash, int64_t stash_cap,
              unsigned long long* __restrict__ stash_top,
              int64_t* __restrict__ wstash,
-             const int32_t* __restrict__ lut) {
+             const int32_t* __restrict__ lut, bool old_format) {
   __shared__ int s_min[kThreads];
   __shared__ uint8_t s_lut[Reduced ? 256 : 1];
   stage_lut<Reduced>(s_lut, lut);
@@ -268,7 +276,8 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
   wmin[lane] = 255;
   __syncwarp();
   for (long long f0 = 0; f0 < fw.total; f0 += 32) {
-    Pair p = pair_at<Reduced>(fw, f0, lane, len, gs, q, frame, d48, s_lut);
+    Pair p = pair_at<Reduced>(fw, f0, lane, len, gs, q, frame, d48, s_lut,
+                              old_format);
     if (p.live) atomicMin(&wmin[p.j], p.h);
   }
   __syncwarp();
@@ -285,7 +294,7 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
   }
   base = __shfl_sync(kFull, base, 0);
   long long kept = walk_kept<Reduced>(
-      fw, lane, len, gs, q, frame, c, d48, s_lut,
+      fw, lane, len, gs, q, frame, c, d48, s_lut, old_format,
       [&](const Pair& p, long long at) {
         if (base >= 0)
           stash[base + at] = make_int2(
@@ -320,7 +329,7 @@ write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
              const int64_t* __restrict__ wstash,
              int32_t* __restrict__ out_row, int32_t* __restrict__ out_slot,
              int32_t* __restrict__ out_pay,
-             const int32_t* __restrict__ lut) {
+             const int32_t* __restrict__ lut, bool old_format) {
   __shared__ uint8_t s_lut[Reduced ? 256 : 1];
   stage_lut<Reduced>(s_lut, lut);
   int lane = threadIdx.x & 31;
@@ -353,7 +362,7 @@ write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
   FlatWindows fw;
   fw.incl = warp_inclusive_sum(len, lane);
   fw.total = __shfl_sync(kFull, fw.incl, 31);
-  walk_kept<Reduced>(fw, lane, len, gs, q, frame, c, d48, s_lut,
+  walk_kept<Reduced>(fw, lane, len, gs, q, frame, c, d48, s_lut, old_format,
             [&](const Pair& p, long long at) {
               out_row[o + at] = p.row;
               out_slot[o + at] = (int32_t)(s0 + p.j);
@@ -368,12 +377,13 @@ int count(const int64_t* value, const bool* valid, const int64_t* qd48,
           int prefix_bits, int cap, int32_t* start, int32_t* wlen,
           int32_t* cut, int64_t* acc, int2* stash, int64_t stash_cap,
           unsigned long long* stash_top, int64_t* wstash, const int32_t* lut,
-          cudaStream_t stream) {
+          int kmer_format, cudaStream_t stream) {
+  if (kmer_format != 1 && kmer_format != 2) return (int)cudaErrorInvalidValue;
   int64_t blocks = (Q + kThreads - 1) / kThreads;
   count_kernel<Reduced><<<(unsigned)blocks, kThreads, 0, stream>>>(
       value, valid, qd48, Q, W, grest, gstart, gend, prefix, d48,
       prefix_bits, cap, start, wlen, cut, acc, stash, stash_cap, stash_top,
-      wstash, lut);
+      wstash, lut, kmer_format == 1);
   return (int)cudaGetLastError();
 }
 
@@ -382,11 +392,12 @@ int write(const int64_t* qd48, int64_t Q, int W, const int64_t* d48,
           const int32_t* start, const int32_t* wlen, const int32_t* cut,
           const int64_t* scan, const int2* stash, const int64_t* wstash,
           int32_t* out_row, int32_t* out_slot, int32_t* out_pay,
-          const int32_t* lut, cudaStream_t stream) {
+          const int32_t* lut, int kmer_format, cudaStream_t stream) {
+  if (kmer_format != 1 && kmer_format != 2) return (int)cudaErrorInvalidValue;
   int64_t blocks = (Q + kThreads - 1) / kThreads;
   write_kernel<Reduced><<<(unsigned)blocks, kThreads, 0, stream>>>(
       qd48, Q, W, d48, start, wlen, cut, scan, stash, wstash, out_row,
-      out_slot, out_pay, lut);
+      out_slot, out_pay, lut, kmer_format == 1);
   return (int)cudaGetLastError();
 }
 
@@ -400,10 +411,11 @@ extern "C" int mtb_search_count(const int64_t* value, const bool* valid,
                                 int32_t* start, int32_t* wlen, int32_t* cut,
                                 int64_t* acc, int2* stash, int64_t stash_cap,
                                 unsigned long long* stash_top, int64_t* wstash,
-                                cudaStream_t stream) {
+                                int kmer_format, cudaStream_t stream) {
   return count<false>(value, valid, qd48, Q, W, grest, gstart, gend, prefix,
                       d48, prefix_bits, cap, start, wlen, cut, acc, stash,
-                      stash_cap, stash_top, wstash, nullptr, stream);
+                      stash_cap, stash_top, wstash, nullptr, kmer_format,
+                      stream);
 }
 
 extern "C" int mtb_search_write(const int64_t* qd48, int64_t Q, int W,
@@ -412,9 +424,10 @@ extern "C" int mtb_search_write(const int64_t* qd48, int64_t Q, int W,
                                 const int64_t* scan, const int2* stash,
                                 const int64_t* wstash, int32_t* out_row,
                                 int32_t* out_slot, int32_t* out_pay,
-                                cudaStream_t stream) {
+                                int kmer_format, cudaStream_t stream) {
   return write<false>(qd48, Q, W, d48, start, wlen, cut, scan, stash, wstash,
-                      out_row, out_slot, out_pay, nullptr, stream);
+                      out_row, out_slot, out_pay, nullptr, kmer_format,
+                      stream);
 }
 
 // K11: value stands in for qd48, taxdna for d48; lut is the 16x16 int32
@@ -425,10 +438,10 @@ extern "C" int mtb_search_count_reduced(
     const int32_t* prefix, const int64_t* taxdna, int prefix_bits, int cap,
     int32_t* start, int32_t* wlen, int32_t* cut, int64_t* acc, int2* stash,
     int64_t stash_cap, unsigned long long* stash_top, int64_t* wstash,
-    const int32_t* lut, cudaStream_t stream) {
+    const int32_t* lut, int kmer_format, cudaStream_t stream) {
   return count<true>(value, valid, qword, Q, W, grest, gstart, gend, prefix,
                      taxdna, prefix_bits, cap, start, wlen, cut, acc, stash,
-                     stash_cap, stash_top, wstash, lut, stream);
+                     stash_cap, stash_top, wstash, lut, kmer_format, stream);
 }
 
 extern "C" int mtb_search_write_reduced(
@@ -436,7 +449,8 @@ extern "C" int mtb_search_write_reduced(
     const int32_t* start, const int32_t* wlen, const int32_t* cut,
     const int64_t* scan, const int2* stash, const int64_t* wstash,
     int32_t* out_row, int32_t* out_slot, int32_t* out_pay, const int32_t* lut,
-    cudaStream_t stream) {
+    int kmer_format, cudaStream_t stream) {
   return write<true>(qword, Q, W, taxdna, start, wlen, cut, scan, stash,
-                     wstash, out_row, out_slot, out_pay, lut, stream);
+                     wstash, out_row, out_slot, out_pay, lut, kmer_format,
+                     stream);
 }

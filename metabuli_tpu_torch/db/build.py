@@ -38,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..csrc import build as kernels
 from ..io import fasta
 from ..ops import encode
 from ..ops.genetic_code import encode_seqs_padded
@@ -197,15 +198,7 @@ def get_accession_batches(
 class IndexBuilder:
     def __init__(self, params: BuildParams, taxonomy: Taxonomy,
                  flush_dir: str | None = None, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the kernels run only on one; pass "
-                "device='cpu' (--device cpu) for the plain PyTorch versions")
-        if params.kmer_format != 2:
-            from ..classify.classifier import not_ported
-
-            raise not_ported("--kmer-format 1 databases", "item 14")
+        self.device = kernels.device(device)
         self.timer = BuildTimer(self.device)
         # the blocks handed to extraction, in order: with gene prediction
         # on, its output (where a build differs, this tells the host's
@@ -349,7 +342,8 @@ class IndexBuilder:
             mm = encode.extract_metamers(d_codes, d_lens,
                                          syncmer=bool(par.syncmer),
                                          smer_len=par.smer_len,
-                                         reduced=bool(par.reduced_aa))
+                                         reduced=bool(par.reduced_aa),
+                                         kmer_format=par.kmer_format)
         with timer.stage("gather"):
             valid = mm.valid
             if batch[0].single_frame:

@@ -1,7 +1,8 @@
-"""6-frame metamer extraction (kernel K1) and its plain PyTorch version.
+"""6-frame metamer extraction (kernel K1), the amino-acid k-mer scanners
+(kernel K12), and their plain PyTorch versions.
 
-Semantics of ``metabuli_tpu.ops.encode.extract_metamers`` for
-``kmer_format`` 2 (`KmerScanner.h:49-118`, `SyncmerScanner.h:9-103`,
+K1 has the semantics of ``metabuli_tpu.ops.encode.extract_metamers``
+(`KmerScanner.h:49-182`, `SyncmerScanner.h:9-103`,
 `KmerExtractor.cpp:342-373`):
 
   * a read of length ``len`` covers ``aa_len = (len-2)//3`` codons per frame
@@ -20,10 +21,26 @@ Semantics of ``metabuli_tpu.ops.encode.extract_metamers`` for
     x 8) (`SeqIterator.cpp:29-43`); it is scored on those codon numbers
     (K11), so it has no dna48;
   * closed syncmers keep a window iff the first minimal s-mer of its
-    canonical s-mer sequence sits at offset 0 or 8-s.
+    canonical s-mer sequence sits at offset 0 or 8-s;
+  * ``kmer_format`` 1 (old-format DBs, `KmerScanner.h:120-182`) packs the
+    same eight codons little-endian: the codon of slot j (the one format 2
+    packs j-th most significant) weighs 21^j in a base-21 amino-acid sum
+    (16^j for the reduced alphabet), its codon number sits at bits 3j (4j)
+    and its bases at dna48 bits 6j.
 
 Invalid windows carry value = dna48 = 0 (the reference package leaves
 garbage there; only valid windows are ever read).
+
+K12 has the semantics of ``extract_aa_kmers`` and ``extract_aa_kmers_dna``
+there (`KmerScanner.h:185-350`, the UniRef DBs' kmerFormat 3/4): k
+residues (12) of 5 bits, most significant first, at every window of a
+protein row whose residues are all valid (code <= 23), optionally closed
+syncmers of s-mers (first minimum at offset 0 or k-s); or of each of the
+six frames of a DNA row translated codon by codon (the frames and codon
+validity of K1; a reverse frame's codon p is read down from the frame's
+last base, so its window w starts at base seq_end - 3(w+k) + 1). Every
+slot's value, pos and valid are written, invalid ones included, as the
+reference package computes them.
 """
 
 from __future__ import annotations
@@ -138,8 +155,11 @@ def _syncmer_keep_plain(aa: torch.Tensor, smer_len: int, W: int):
 
 def extract_metamers_plain(codes: torch.Tensor, lens: torch.Tensor, *,
                            syncmer: bool = False, smer_len: int = 5,
-                           reduced: bool = False) -> Metamers:
+                           reduced: bool = False,
+                           kmer_format: int = 2) -> Metamers:
     """Plain PyTorch version of kernel K1 (any device)."""
+    if kmer_format not in (1, 2):
+        raise ValueError(f"unsupported kmer_format {kmer_format}")
     B, L = codes.shape
     A = max(0, (L - 2) // 3)
     W = max(0, A - K + 1)
@@ -154,6 +174,7 @@ def extract_metamers_plain(codes: torch.Tensor, lens: torch.Tensor, *,
     dna_part = torch.zeros_like(aa_part)
     dna48 = torch.zeros_like(aa_part)
     valid = torch.ones((B, 6, W), dtype=torch.bool, device=dev)
+    aa_base = 16 if reduced else 21
     for j in range(K):
         # codon feeding bit slot j (most significant first): forward frames
         # take codon w+j, reverse frames codon w+7-j
@@ -161,9 +182,14 @@ def extract_metamers_plain(codes: torch.Tensor, lens: torch.Tensor, *,
         a_j = torch.cat([aa[:, :3, j: j + W], aa[:, 3:, o: o + W]], 1)
         n_j = torch.cat([num[:, :3, j: j + W], num[:, 3:, o: o + W]], 1)
         c_j = torch.cat([c6[:, :3, j: j + W], c6[:, 3:, o: o + W]], 1)
-        aa_part = (aa_part << bits_aa) | torch.clamp(a_j, min=0)
-        dna_part = (dna_part << bits_codon) | n_j
-        dna48 = (dna48 << 6) | c_j
+        if kmer_format == 2:
+            aa_part = (aa_part << bits_aa) | torch.clamp(a_j, min=0)
+            dna_part = (dna_part << bits_codon) | n_j
+            dna48 = (dna48 << 6) | c_j
+        else:  # slot j is the j-th least significant
+            aa_part = aa_part + torch.clamp(a_j, min=0) * aa_base ** j
+            dna_part = dna_part | (n_j << (bits_codon * j))
+            dna48 = dna48 | (c_j << (6 * j))
         valid = valid & ok[:, :, j: j + W]
     if syncmer:
         valid = valid & _syncmer_keep_plain(aa, smer_len, W)
@@ -176,14 +202,18 @@ def extract_metamers_plain(codes: torch.Tensor, lens: torch.Tensor, *,
 
 def extract_metamers(codes: torch.Tensor, lens: torch.Tensor, *,
                      syncmer: bool = False, smer_len: int = 5,
-                     reduced: bool = False) -> Metamers:
+                     reduced: bool = False, kmer_format: int = 2) -> Metamers:
     """Kernel K1 wrapper: CUDA tensors launch ``mtb_extract_metamers``, or
     ``mtb_extract_metamers_reduced`` for the reduced alphabet (a CTA per
-    chunk of a row's windows; the kernel writes every output element);
-    CPU tensors take the plain version."""
+    chunk of a row's windows; the kernel writes every output element),
+    with the packing of ``kmer_format``; CPU tensors take the plain
+    version."""
     if codes.device.type == "cpu":
         return extract_metamers_plain(codes, lens, syncmer=syncmer,
-                                      smer_len=smer_len, reduced=reduced)
+                                      smer_len=smer_len, reduced=reduced,
+                                      kmer_format=kmer_format)
+    if kmer_format not in (1, 2):
+        raise ValueError(f"unsupported kmer_format {kmer_format}")
     if codes.dtype != torch.uint8 or lens.dtype != torch.int32:
         raise TypeError("extract_metamers: codes uint8 [B, L], lens int32 [B]")
     B, L = codes.shape
@@ -207,8 +237,215 @@ def extract_metamers(codes: torch.Tensor, lens: torch.Tensor, *,
     rc = fn(codes.data_ptr(), lens.data_ptr(), B, L, W, int(bool(syncmer)),
             int(smer_len), aa_tab.data_ptr(), num_tab.data_ptr(),
             value.data_ptr(), pos.data_ptr(), valid.data_ptr(),
-            None if reduced else dna48.data_ptr(), build.stream(dev))
-    build.check(rc, "extract_metamers")
-    # both alphabets count as K1
-    build.launches["extract_metamers"] += 1
+            None if reduced else dna48.data_ptr(), kmer_format,
+            build.stream(dev))
+    name = "extract_metamers" if kmer_format == 2 else "extract_metamers_f1"
+    build.check(rc, name)
+    # both alphabets count as K1 (of their format)
+    build.launches[name] += 1
     return Metamers(value, pos, valid, dna48)
+
+
+# ------------------------------------------------------------------- K12
+AA_K = 12  # residues of an amino-acid k-mer (the UniRef DBs' KMER_LEN)
+_RC8 = (2, 3, 0, 1, 7, 7, 7, 7)  # reverse complement of 3-bit base codes
+
+
+def _build_aa_char_table() -> np.ndarray:
+    """Residue char -> code (`KmerScanner.h:272-306`); codes > 23 invalid."""
+    tab = np.full(256, 27, np.uint8)
+    for i, ch in enumerate("ARNDCQEGHILKMFPSTWYV"):
+        tab[ord(ch)] = i
+    tab[ord("B")] = 20
+    tab[ord("Z")] = 21
+    tab[ord("U")] = 22
+    tab[ord("O")] = 23
+    tab[ord("*")] = 24
+    for ch in "-.?":
+        tab[ord(ch)] = 25
+    tab[ord("X")] = 26
+    # lowercase maps like uppercase (kseq yields raw sequence; the reference
+    # indexes the raw char, so keep lowercase invalid to match `aacids`)
+    return tab
+
+
+AA_CHAR_CODE = _build_aa_char_table()
+
+
+def encode_aa_seqs_padded(seqs, max_len=None):
+    lens = np.array([len(s) for s in seqs], dtype=np.int32)
+    if max_len is None:
+        max_len = int(lens.max()) if len(seqs) else 0
+    out = np.full((len(seqs), max_len), 27, dtype=np.uint8)
+    for i, s in enumerate(seqs):
+        if isinstance(s, str):
+            s = s.encode()
+        n = min(len(s), max_len)
+        out[i, :n] = AA_CHAR_CODE[np.frombuffer(s, dtype=np.uint8)[:n]]
+    return out, lens
+
+
+def _check_aa_args(name, codes, lens, k, smer_len=1):
+    # s-mers of at most 12 residues (60 bits) compare the same as int64
+    if not (1 <= k <= 32 and 1 <= smer_len <= min(k, 12)):
+        raise ValueError(f"{name}: need 1 <= k <= 32 and "
+                         "1 <= smer_len <= min(k, 12)")
+    if codes.dim() != 2 or lens.shape != (codes.shape[0],):
+        raise ValueError(f"{name}: codes [B, L] and lens [B]")
+
+
+def extract_aa_kmers_plain(codes: torch.Tensor, lens: torch.Tensor, *,
+                           k: int = AA_K, syncmer: bool = False,
+                           smer_len: int = 5):
+    """Plain PyTorch version of kernel K12 on protein rows (any device):
+    (value int64 [B, W], pos int32, valid bool), W = L - k + 1."""
+    _check_aa_args("extract_aa_kmers", codes, lens, k, smer_len)
+    B, L = codes.shape
+    W = max(0, L - k + 1)
+    dev = codes.device
+    c = codes.to(torch.int64)
+    ok = c <= 23
+    value = torch.zeros((B, W), dtype=torch.int64, device=dev)
+    valid = torch.ones((B, W), dtype=torch.bool, device=dev)
+    for j in range(k):
+        value = (value << 5) | c[:, j: j + W]
+        valid = valid & ok[:, j: j + W]
+    pos = torch.arange(W, dtype=torch.int32, device=dev).expand(B, W)
+    valid = valid & (pos + k <= lens.to(torch.int64)[:, None])
+    if syncmer and W:
+        n_pos = L - smer_len + 1
+        c0 = torch.where(ok, c, 0)
+        smer = torch.zeros((B, n_pos), dtype=torch.int64, device=dev)
+        for j in range(smer_len):
+            smer = (smer << 5) | c0[:, j: j + n_pos]
+        n_smer = k - smer_len + 1
+        # torch.argmin returns the first minimum
+        first = torch.argmin(torch.stack(
+            [smer[:, t: t + W] for t in range(n_smer)], -1), dim=-1)
+        valid = valid & ((first == 0) | (first == n_smer - 1))
+    return value, pos.contiguous(), valid
+
+
+def _translate_frames_plain(codes: torch.Tensor, lens: torch.Tensor):
+    """The six frames of DNA rows, codon by codon: (amino acid [B, 6, A],
+    -1 where the codon is invalid; valid [B, 6, A]; the frame's seq_end
+    [B, 6], its last covered base)."""
+    B, L = codes.shape
+    A = max(0, (L - 2) // 3)
+    dev = codes.device
+    aa_tab = _tables(dev)[0].to(torch.int64)
+    rc = torch.tensor(_RC8, dtype=torch.int64, device=dev)
+    c = codes.to(torch.int64)
+    lens = lens.to(torch.int64)
+    used = torch.clamp(3 * torch.div(lens - 2, 3, rounding_mode="floor"),
+                       min=0)
+    idx = torch.arange(A, device=dev)
+
+    def base(bi):
+        v = torch.gather(c, 1, torch.clamp(bi, 0, max(L - 1, 0)))
+        return torch.where((bi >= 0) & (bi < L), v, 7)
+
+    aas, oks, ends = [], [], []
+    for f in range(6):
+        if f < 3:
+            begin = torch.full((B,), f, dtype=torch.int64, device=dev)
+            b1 = begin[:, None] + 3 * idx[None, :]
+            c1, c2, c3 = base(b1), base(b1 + 1), base(b1 + 2)
+        else:
+            begin = torch.remainder(lens % 3 - (f - 3), 3)
+            b1 = (begin + used - 1)[:, None] - 3 * idx[None, :]
+            c1, c2, c3 = rc[base(b1)], rc[base(b1 - 1)], rc[base(b1 - 2)]
+        ok = (c1 < 4) & (c2 < 4) & (c3 < 4) & (idx[None, :] < (used // 3)[:, None])
+        ci = (c1 * 16 + c2 * 4 + c3) & 63
+        aas.append(torch.where(ok, aa_tab[ci], -1))
+        oks.append(ok)
+        ends.append(begin + used - 1)
+    return torch.stack(aas, 1), torch.stack(oks, 1), torch.stack(ends, 1)
+
+
+def extract_aa_kmers_dna_plain(codes: torch.Tensor, lens: torch.Tensor, *,
+                               k: int = AA_K):
+    """Plain PyTorch version of kernel K12 on DNA rows (any device):
+    (value int64 [B, 6, W], pos int32, valid bool), W = (L-2)//3 - k + 1."""
+    _check_aa_args("extract_aa_kmers_dna", codes, lens, k)
+    B, L = codes.shape
+    A = max(0, (L - 2) // 3)
+    W = max(0, A - k + 1)
+    dev = codes.device
+    if W == 0:
+        z = torch.zeros((B, 6, 0), dtype=torch.int64, device=dev)
+        return z, z.to(torch.int32), z.to(torch.bool)
+    aa, ok, end = _translate_frames_plain(codes, lens)
+    a = torch.clamp(aa, min=0)
+    value = torch.zeros((B, 6, W), dtype=torch.int64, device=dev)
+    valid = torch.ones((B, 6, W), dtype=torch.bool, device=dev)
+    for j in range(k):
+        value = (value << 5) | a[..., j: j + W]
+        valid = valid & ok[..., j: j + W]
+    p = torch.arange(W, device=dev)
+    fwd = torch.arange(3, device=dev)[None, :, None] + 3 * p
+    rev = end[:, 3:, None] - 3 * (p + k) + 1
+    pos = torch.cat([fwd.expand(B, 3, W), rev], 1).to(torch.int32)
+    return value, pos, valid
+
+
+def _aa_outputs(shape, dev):
+    return (torch.empty(shape, dtype=torch.int64, device=dev),
+            torch.empty(shape, dtype=torch.int32, device=dev),
+            torch.empty(shape, dtype=torch.bool, device=dev))
+
+
+def extract_aa_kmers(codes: torch.Tensor, lens: torch.Tensor, *,
+                     k: int = AA_K, syncmer: bool = False,
+                     smer_len: int = 5):
+    """Kernel K12 wrapper, protein rows: CUDA tensors launch
+    ``mtb_extract_aa_kmers`` (a CTA per chunk of a row's windows), CPU
+    tensors take the plain version."""
+    if codes.device.type == "cpu":
+        return extract_aa_kmers_plain(codes, lens, k=k, syncmer=syncmer,
+                                      smer_len=smer_len)
+    _check_aa_args("extract_aa_kmers", codes, lens, k, smer_len)
+    build.require_cuda("extract_aa_kmers", codes)
+    build.require_cuda("extract_aa_kmers", lens, dtype=torch.int32)
+    if codes.dtype != torch.uint8:
+        raise TypeError("extract_aa_kmers: codes uint8 [B, L]")
+    B, L = codes.shape
+    W = max(0, L - k + 1)
+    value, pos, valid = _aa_outputs((B, W), codes.device)
+    if B == 0 or W == 0:
+        return value, pos, valid
+    rc = build.get_lib().mtb_extract_aa_kmers(
+        codes.data_ptr(), lens.data_ptr(), B, L, W, k, int(bool(syncmer)),
+        smer_len, value.data_ptr(), pos.data_ptr(), valid.data_ptr(),
+        build.stream(codes.device))
+    build.check(rc, "extract_aa_kmers")
+    build.launches["extract_aa_kmers"] += 1
+    return value, pos, valid
+
+
+def extract_aa_kmers_dna(codes: torch.Tensor, lens: torch.Tensor, *,
+                         k: int = AA_K):
+    """Kernel K12 wrapper, DNA rows: CUDA tensors launch
+    ``mtb_extract_aa_kmers_dna`` (the six frames translated and scanned in
+    one pass, a CTA per chunk of a row's windows), CPU tensors take the
+    plain version."""
+    if codes.device.type == "cpu":
+        return extract_aa_kmers_dna_plain(codes, lens, k=k)
+    _check_aa_args("extract_aa_kmers_dna", codes, lens, k)
+    build.require_cuda("extract_aa_kmers_dna", codes)
+    build.require_cuda("extract_aa_kmers_dna", lens, dtype=torch.int32)
+    if codes.dtype != torch.uint8:
+        raise TypeError("extract_aa_kmers_dna: codes uint8 [B, L]")
+    B, L = codes.shape
+    W = max(0, max(0, (L - 2) // 3) - k + 1)
+    value, pos, valid = _aa_outputs((B, 6, W), codes.device)
+    if B == 0 or W == 0:
+        return value, pos, valid
+    aa_tab = _tables(codes.device)[0]
+    rc = build.get_lib().mtb_extract_aa_kmers_dna(
+        codes.data_ptr(), lens.data_ptr(), B, L, W, k, aa_tab.data_ptr(),
+        value.data_ptr(), pos.data_ptr(), valid.data_ptr(),
+        build.stream(codes.device))
+    build.check(rc, "extract_aa_kmers_dna")
+    build.launches["extract_aa_kmers_dna"] += 1
+    return value, pos, valid

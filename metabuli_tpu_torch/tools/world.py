@@ -12,6 +12,10 @@ genomes and reads in both packages.
 writes ``chip_smoke.py``'s smoke DB and reads on the card: the skew
 world from seed 0, its metamer DB padded to 2^28 rows (``OUT/db``,
 ``build_db``) and 65,536 reads of 150 bases (``OUT/reads.fq``).
+
+``uniref_world`` and ``uniref_queries`` make the UniRef-like protein
+clusters, their XML dump and the DNA and protein queries of the smoke
+run's ``uniref`` phase.
 """
 
 from __future__ import annotations
@@ -196,6 +200,130 @@ def write_fastq(path: str, reads) -> None:
     with open(path, "w") as fh:
         for i, r in enumerate(reads):
             fh.write(f"@r{i}\n{r.decode()}\n+\n{'I' * len(r)}\n")
+
+
+# UniRef-like protein clusters (chip_smoke.py's uniref phase): UniRef50
+# seeds, each UniRef90 seed at ~30 % substitutions from its UniRef50's,
+# each UniRef100 entry at ~5 % from its UniRef90's: the clusters' identity
+# thresholds, at the real entry length and query shapes, cut in count
+UNIREF = dict(entries=32_768, length=300, u90=4_096, u50=512, sub90=0.05,
+              sub50=0.30)
+AA20 = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+_UNIREF_NS = 'xmlns="http://uniprot.org/uniref"'
+
+
+def _aa_substitute(idx: np.ndarray, rate: float, rng) -> np.ndarray:
+    """A copy of residue indices ``idx`` (0..19) with ``rate`` of them
+    replaced by a different residue."""
+    out = idx.copy()
+    hit = rng.random(out.shape) < rate
+    out[hit] = (out[hit] + rng.integers(1, 20, int(hit.sum()))) % 20
+    return out
+
+
+def uniref_world(d: str, seed: int = 2, spec: dict = UNIREF):
+    """A UniRef100 XML dump (``d/uniref100.xml``, the schema the UniRef
+    tools read: entry id, the representative member's UniRef90 and
+    UniRef50 IDs and its sequence) of ``spec["entries"]`` entries in
+    ``u90`` UniRef90 and ``u50`` UniRef50 clusters, drawn from ``seed``.
+    Returns (xml path, [entry sequence bytes])."""
+    rng = np.random.default_rng(seed)
+    n, length = spec["entries"], spec["length"]
+    per90, per50 = n // spec["u90"], spec["u90"] // spec["u50"]
+    seeds50 = rng.integers(0, 20, (spec["u50"], length))
+    seeds90 = _aa_substitute(np.repeat(seeds50, per50, axis=0),
+                             spec["sub50"], rng)
+    members = _aa_substitute(np.repeat(seeds90, per90, axis=0),
+                             spec["sub90"], rng)
+    seqs = [AA20[m].tobytes() for m in members]
+    parts = [f'<?xml version="1.0"?><UniRef100 {_UNIREF_NS}>']
+    for i, seq in enumerate(seqs):
+        c90 = i // per90
+        parts.append(
+            f'<entry id="UniRef100_U{i:06d}" updated="2024-01-01">'
+            '<representativeMember><dbReference type="UniProtKB ID" id="x">'
+            f'<property type="UniRef90 ID" value="UniRef90_U{c90:05d}"/>'
+            '<property type="UniRef50 ID" '
+            f'value="UniRef50_U{c90 // per50:04d}"/>'
+            f'</dbReference><sequence length="{length}">{seq.decode()}'
+            "</sequence></representativeMember></entry>")
+    parts.append("</UniRef100>")
+    os.makedirs(d, exist_ok=True)
+    xml = os.path.join(d, "uniref100.xml")
+    with open(xml, "w") as fh:
+        fh.write("".join(parts))
+    return xml, seqs
+
+
+def uniref_queries(seqs, rng, n: int, length: int, dna: bool,
+                   error: float = 0.02):
+    """``n`` queries cut from the entries ``seqs`` in turn at random
+    offsets, every tenth uniform random: ``dna`` back-translates a
+    fragment of ``length // 3`` residues with random synonymous codons,
+    sets ``error`` of its bases to another base and reverse-complements
+    half of them; otherwise protein fragments of ``length`` residues."""
+    from ..ops.genetic_code import _STD_AA_CODONS
+
+    letter = {c: i for i, c in enumerate(AA20.tolist())}
+    codons = [[c.encode() for c in _STD_AA_CODONS[a]] for a in range(20)]
+    out = []
+    for i in range(n):
+        if i % 10 == 9:
+            out.append(bytes(rng.choice(ACGT, length)) if dna
+                       else AA20[rng.integers(0, 20, length)].tobytes())
+            continue
+        s = seqs[i % len(seqs)]
+        k = length // 3 if dna else length
+        st = int(rng.integers(0, len(s) - k + 1))
+        frag = s[st:st + k]
+        if not dna:
+            out.append(frag)
+            continue
+        pick = rng.random(k)
+        read = np.frombuffer(b"".join(
+            cs[int(p * len(cs))] for cs, p in
+            zip((codons[letter[c]] for c in frag), pick)), np.uint8).copy()
+        _substitute(read, np.nonzero(rng.random(len(read)) < error)[0], rng)
+        if rng.integers(0, 2):
+            read = np.frombuffer(read.tobytes().translate(
+                bytes.maketrans(b"ACGT", b"TGCA"))[::-1], np.uint8)
+        out.append(read.tobytes())
+    return out
+
+
+def write_fasta(path: str, seqs, prefix: str = "q") -> None:
+    with open(path, "w") as fh:
+        fh.write("".join(f">{prefix}{i}\n{s.decode()}\n"
+                         for i, s in enumerate(seqs)))
+
+
+def uniref_inputs(d: str, n_dna: int = 65_536, n_protein: int = 4_096):
+    """The uniref phase's inputs under ``d``: the XML dump of
+    ``uniref_world`` (seed 2), ``n_dna`` DNA reads of 150 bases
+    (``d/dna.fna``) and ``n_protein`` protein fragments of 100 residues
+    (``d/protein.fasta``) drawn from seed 3. Returns the three paths and
+    the entries' sequences, in the dump's order."""
+    xml, seqs = uniref_world(d)
+    rng = np.random.default_rng(3)
+    dna = os.path.join(d, "dna.fna")
+    write_fasta(dna, uniref_queries(seqs, rng, n_dna, 150, dna=True), "d")
+    prot = os.path.join(d, "protein.fasta")
+    write_fasta(prot, uniref_queries(seqs, rng, n_protein, 100, dna=False),
+                "p")
+    return xml, dna, prot, seqs
+
+
+def uniref_tree_sha256(tree_path: str) -> str:
+    """sha256 of a saved UniRef tree's arrays (parent, rank, the names one
+    a line): the .npz file itself holds zip timestamps."""
+    import hashlib
+
+    z = np.load(tree_path if tree_path.endswith(".npz")
+                else tree_path + ".npz", allow_pickle=True)
+    h = hashlib.sha256(np.ascontiguousarray(z["parent"]).tobytes())
+    h.update(np.ascontiguousarray(z["rank"]).tobytes())
+    h.update("\n".join(str(x) for x in z["names"]).encode())
+    return h.hexdigest()
 
 
 DB_CHUNK = 64  # genomes per K1 launch of build_db

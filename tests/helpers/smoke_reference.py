@@ -2,7 +2,7 @@
 phases, from the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tests/helpers/smoke_reference.py \
-        [dbbuild] [longread] [reduced] [--port]
+        [dbbuild] [longread] [reduced] [format1] [grouping] [uniref] [--port]
 
 (dbbuild and longread when none is named). dbbuild: builds the skew world of ``metabuli_tpu_torch.tools.world`` (seed 0, 384
 species of 100 kb, one FASTA file per genus) with ``metabuli_tpu``'s
@@ -22,7 +22,17 @@ classified with ``--seq-mode 3``, 1,024 a batch: the classified count and
 the classifications' sha256. reduced: dbbuild's library built with
 ``--reduced-aa 1`` at the defaults, and dbbuild's 65,536 reads classified
 against it, 8,192 a batch: the DB and gene-block digests, the classified
-count and the classifications' sha256. ``--port`` runs the same steps
+count and the classifications' sha256. format1: dbbuild's library built
+with ``--kmer-format 1`` at the defaults and dbbuild's reads classified
+against it, as reduced. grouping: dbbuild's run, then ``grouping`` of its
+reads with its classifications of them and ``--dbdir`` its updated DB,
+once plain and once with ``--common-kmer-db`` (``create-common-kmer-list``
+of its first DB) and ``--neighbor-kmers 12``: each ``read_groups.tsv``'s
+sha256, groups and rescued reads. uniref: ``world.uniref_inputs``,
+``create-uniref-db`` of its XML (the sha256 of diffIdx and info, and
+``world.uniref_tree_sha256`` of unirefTree), ``assign_uniref`` of its DNA
+reads and of its protein fragments (auto-detected): each
+``uniref_classifications.tsv``'s sha256. ``--port`` runs the same steps
 through ``metabuli_tpu_torch`` on the CPU as well and prints its line.
 """
 
@@ -61,9 +71,9 @@ def write_fastq(path: str, reads) -> None:
             fh.write(f"@r{i}\n{r.decode()}\n+\n{'I' * len(r)}\n")
 
 
-def jax_run(tmp, lib, acc, taxdir, new, fq, reduced=False) -> dict:
-    """dbbuild's build, updateDB and classify through the JAX package; with
-    ``reduced``, the reduced phase's build and classify."""
+def jax_run(tmp, lib, acc, taxdir, new, fq, phase="dbbuild") -> dict:
+    """dbbuild's build, updateDB and classify through the JAX package; for
+    the reduced and format1 phases, their build and classify."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -87,24 +97,25 @@ def jax_run(tmp, lib, acc, taxdir, new, fq, reduced=False) -> dict:
     build.IndexBuilder.add_sequences = hashed_add
     out = {}
     t0 = time.perf_counter()
-    db = os.path.join(tmp, "jax_reduced_db" if reduced else "jax_db")
-    st = build.build_database(db, lib, acc, taxdir,
-                              BuildParams(db_date=DB_DATE,
-                                          reduced_aa=int(reduced)))
+    variant = phase != "dbbuild"
+    db = os.path.join(tmp, f"jax_{phase}_db" if variant else "jax_db")
+    st = build.build_database(db, lib, acc, taxdir, BuildParams(
+        db_date=DB_DATE, reduced_aa=int(phase == "reduced"),
+        kmer_format=1 if phase == "format1" else 2))
     (n, h), = blocks.values()
     out["build"] = {"total_kmers": st["total_kmers"],
                     "unique_kmers": st["unique_kmers"], "blocks": n,
                     "blocks_sha256": h.hexdigest(), "db_sha256": db_sha256(db),
                     "s": time.perf_counter() - t0}
     blocks.clear()
-    if reduced:
+    if variant:
         t0 = time.perf_counter()
         clf = Classifier(db, ClassifyParams(seq_mode=1, batch_reads=8192))
-        s = clf.classify_file(fq, None, os.path.join(tmp, "jax_red_out"),
-                              "reduced")
+        s = clf.classify_file(fq, None, os.path.join(tmp, f"jax_{phase}_out"),
+                              phase)
         out["classify"] = {"classified": s["classified"], "sha256": (
-            file_sha256(os.path.join(tmp, "jax_red_out",
-                                     "reduced_classifications.tsv"))),
+            file_sha256(os.path.join(tmp, f"jax_{phase}_out",
+                                     f"{phase}_classifications.tsv"))),
             "s": time.perf_counter() - t0}
         return out
     t0 = time.perf_counter()
@@ -128,35 +139,42 @@ def jax_run(tmp, lib, acc, taxdir, new, fq, reduced=False) -> dict:
     return out
 
 
-def port_run(tmp, lib, acc, taxdir, new, fq, reduced=False) -> dict:
+def cli_json(package: str, argv) -> dict:
+    """One command through ``metabuli_tpu`` or ``metabuli_tpu_torch``'s
+    CLI; its last printed line as JSON."""
     import contextlib
+    import importlib
     import io
 
-    from metabuli_tpu_torch.cli import main
+    main = importlib.import_module(f"{package}.cli").main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
 
-    def cli(argv):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            assert main(argv) == 0
-        return json.loads(buf.getvalue().strip().splitlines()[-1])
 
+def port_run(tmp, lib, acc, taxdir, new, fq, phase="dbbuild") -> dict:
+    cli = lambda argv: cli_json("metabuli_tpu_torch", argv)
     out = {}
-    db = os.path.join(tmp, "port_reduced_db" if reduced else "port_db")
+    variant = phase != "dbbuild"
+    db = os.path.join(tmp, f"port_{phase}_db" if variant else "port_db")
     db2 = os.path.join(tmp, "port_db_updated")
     st = cli(["build", db, lib, acc, "--taxonomy-path", taxdir,
-              "--db-date", DB_DATE, "--reduced-aa", str(int(reduced)),
+              "--db-date", DB_DATE,
+              "--reduced-aa", str(int(phase == "reduced")),
+              "--kmer-format", "1" if phase == "format1" else "2",
               "--device", "cpu"])
     out["build"] = {k: st[k] for k in ("total_kmers", "unique_kmers",
                                        "blocks", "blocks_sha256")}
     out["build"]["db_sha256"] = db_sha256(db)
-    if reduced:
-        s = cli(["classify", fq, db, os.path.join(tmp, "port_red_out"),
-                 "reduced", "--seq-mode", "1", "--batch-reads", "8192",
+    if variant:
+        s = cli(["classify", fq, db, os.path.join(tmp, f"port_{phase}_out"),
+                 phase, "--seq-mode", "1", "--batch-reads", "8192",
                  "--device", "cpu"])
         out["classify"] = {"classified": s["classified"],
                            "sha256": file_sha256(os.path.join(
-                               tmp, "port_red_out",
-                               "reduced_classifications.tsv"))}
+                               tmp, f"port_{phase}_out",
+                               f"{phase}_classifications.tsv"))}
         return out
     st = cli(["updateDB", db2, new[0], new[1], "--old-db", db,
               "--new-taxa", new[2], "--db-date", DB_DATE, "--device", "cpu"])
@@ -222,6 +240,57 @@ def longread_run(tmp, db, fq, port: bool) -> dict:
             "s": time.perf_counter() - t0}
 
 
+def grouping_run(tmp, fq, package: str) -> dict:
+    """The grouping phase through one package's CLI, on dbbuild's JAX
+    outputs (its DBs and classifications, byte-equal to the port's)."""
+    side = "port" if package.endswith("torch") else "jax"
+    dev = ["--device", "cpu"] if side == "port" else []
+    cls = os.path.join(tmp, "jax_out", "smoke_classifications.tsv")
+    common = os.path.join(tmp, f"{side}_common")
+    cli_json(package, ["create-common-kmer-list", os.path.join(tmp, "jax_db"),
+                       common])
+    out = {}
+    for name, extra in (("plain", []), ("common", [
+            "--common-kmer-db", common, "--neighbor-kmers", "12"])):
+        t0 = time.perf_counter()
+        d = os.path.join(tmp, f"{side}_grouping_{name}")
+        s = cli_json(package, ["grouping", fq, cls, d, "--dbdir",
+                               os.path.join(tmp, "jax_db_updated"),
+                               *extra, *dev])
+        out[name] = {"groups": s["groups"], "rescued": s["rescued"],
+                     "sha256": file_sha256(os.path.join(d,
+                                                        "read_groups.tsv")),
+                     "s": time.perf_counter() - t0}
+    return out
+
+
+def uniref_run(tmp, package: str) -> dict:
+    """The uniref phase through one package's CLI."""
+    from metabuli_tpu_torch.tools import world
+
+    side = "port" if package.endswith("torch") else "jax"
+    dev = ["--device", "cpu"] if side == "port" else []
+    xml, dna, prot, _ = world.uniref_inputs(os.path.join(tmp, "uniref_in"))
+    db = os.path.join(tmp, f"{side}_uniref_db")
+    t0 = time.perf_counter()
+    s = cli_json(package, ["create-uniref-db", xml, db, *dev])
+    out = {"db": {**s, "diffidx_sha256": file_sha256(
+                      os.path.join(db, "diffIdx")),
+                  "info_sha256": file_sha256(os.path.join(db, "info")),
+                  "tree_sha256": world.uniref_tree_sha256(
+                      os.path.join(db, "unirefTree")),
+                  "s": time.perf_counter() - t0}}
+    for name, q in (("dna", dna), ("protein", prot)):
+        t0 = time.perf_counter()
+        d = os.path.join(tmp, f"{side}_uniref_{name}")
+        s = cli_json(package, ["assign_uniref", q, db, d, *dev])
+        out[name] = {"queries": s["queries"], "classified": s["classified"],
+                     "sha256": file_sha256(os.path.join(
+                         d, "uniref_classifications.tsv")),
+                     "s": time.perf_counter() - t0}
+    return out
+
+
 def main() -> int:
     from metabuli_tpu_torch.tools import world
 
@@ -237,7 +306,14 @@ def main() -> int:
             if port:
                 print(json.dumps({"port": {"longread": longread_run(
                     tmp, db, fq, True)}}), flush=True)
-    if "dbbuild" not in phases and "reduced" not in phases:
+    if "uniref" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"jax": {"uniref": uniref_run(
+                tmp, "metabuli_tpu")}}), flush=True)
+            if port:
+                print(json.dumps({"port": {"uniref": uniref_run(
+                    tmp, "metabuli_tpu_torch")}}), flush=True)
+    if not {"dbbuild", "reduced", "format1", "grouping"} & set(phases):
         return 0
     with tempfile.TemporaryDirectory() as tmp:
         tax, genomes, rng = world.make_world(tmp, "skew")
@@ -248,16 +324,22 @@ def main() -> int:
         fq = os.path.join(tmp, "reads.fq")
         write_fastq(fq, reads)
         taxdir = os.path.join(tmp, "skew_taxonomy")
-        for phase in ("dbbuild", "reduced"):
+        if "grouping" in phases and "dbbuild" not in phases:
+            phases.append("dbbuild")  # grouping reads its outputs
+        for phase in ("dbbuild", "reduced", "format1"):
             if phase not in phases:
                 continue
-            red = phase == "reduced"
             print(json.dumps({"jax": {phase: jax_run(
-                tmp, lib, acc, taxdir, new, fq, reduced=red)}}), flush=True)
+                tmp, lib, acc, taxdir, new, fq, phase)}}), flush=True)
             if port:
                 print(json.dumps({"port": {phase: port_run(
-                    tmp, lib, acc, taxdir, new, fq, reduced=red)}}),
-                    flush=True)
+                    tmp, lib, acc, taxdir, new, fq, phase)}}), flush=True)
+        if "grouping" in phases:
+            print(json.dumps({"jax": {"grouping": grouping_run(
+                tmp, fq, "metabuli_tpu")}}), flush=True)
+            if port:
+                print(json.dumps({"port": {"grouping": grouping_run(
+                    tmp, fq, "metabuli_tpu_torch")}}), flush=True)
     return 0
 
 

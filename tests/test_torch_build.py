@@ -175,14 +175,6 @@ def test_port_update_db_equals_jax(tmp_path, branch):
     assert_same_db(jax_out, port_out)
 
 
-@pytest.mark.parametrize("flag,item", [("--kmer-format", "item 14")])
-def test_port_build_without_k1_variant_raises(tmp_path, flag, item):
-    _, _, lib, acc, taxdir = _skew_library(tmp_path, 1)
-    with pytest.raises(NotImplementedError, match=item):
-        main(["build", str(tmp_path / "db"), lib, acc, "--taxonomy-path",
-              taxdir, flag, "1", "--device", "cpu"])
-
-
 def test_port_build_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
     import torch
 

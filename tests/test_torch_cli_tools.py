@@ -25,7 +25,8 @@ from metabuli_tpu_torch import cli as port_cli
 DATE = "2026-01-01"
 ACGT = np.array(list(b"ACGT"), np.uint8)
 # the commands that run the kernels: the port's take --device cpu here
-ON_DEVICE = ("classify", "build", "updateDB", "filter")
+ON_DEVICE = ("classify", "build", "updateDB", "filter", "grouping",
+             "create-uniref-db", "assign_uniref")
 
 
 def run(side: str, argv: list[str]) -> tuple[int, str]:
@@ -198,6 +199,16 @@ CASES = {
                            "{S}/newtax", "{C}/acc2taxid.new",
                            "{S}/newtaxa_out"]],
     "databases": [["databases"]],
+    # test_cli_tools.py's old-format round trip
+    "build-format1": [["build", "{S}/db_f1", "{C}/library.txt",
+                       "{C}/acc2taxid.map", "--taxonomy-path",
+                       "{C}/taxonomy", "--gene-prediction", "0",
+                       "--kmer-format", "1", "--db-date", DATE],
+                      ["classify", "{C}/reads.fna", "{S}/db_f1",
+                       "{S}/f1_out", "f1", "--seq-mode", "1",
+                       "--batch-reads", "16"]],
+    "grouping": [["grouping", "{C}/reads.fna", CLS, "{S}/groups",
+                  "--dbdir", DB]],
 }
 
 
@@ -274,22 +285,3 @@ def test_port_version_and_unknown_command(capsys):
     assert listed == list(port_cli.COMMANDS) == list(jax_cli.COMMANDS)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["grouping", "q.fna", "c.tsv", "out"], "item 12"),
-    (["create-uniref-db", "u.xml", "db"], "item 12"),
-    (["assign_uniref", "q.fna", "db", "out"], "item 12"),
-])
-def test_port_commands_of_item_12_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_cli.main(argv)
-
-
-def test_port_old_format_build_raises(world, tmp_path):
-    """--kmer-format 1 (test_cli_tools' old-format round trip) is item
-    14 in the port."""
-    c = world["common"]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        port_cli.main(["build", str(tmp_path / "db1"), str(c / "library.txt"),
-                       str(c / "acc2taxid.map"), "--taxonomy-path",
-                       str(c / "taxonomy"), "--gene-prediction", "0",
-                       "--kmer-format", "1", "--device", "cpu"])

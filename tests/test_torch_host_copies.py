@@ -50,7 +50,9 @@ def test_port_cli_imports_neither_jax_nor_reference_package():
     code = ("import sys, metabuli_tpu_torch.cli, "
             "metabuli_tpu_torch.classify.classifier, "
             "metabuli_tpu_torch.tools.probes, metabuli_tpu_torch.db.build, "
-            "metabuli_tpu_torch.db.update, metabuli_tpu_torch.tools.misc; "
+            "metabuli_tpu_torch.db.update, metabuli_tpu_torch.tools.misc, "
+            "metabuli_tpu_torch.readgroup.group, "
+            "metabuli_tpu_torch.uniref.classifier; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'metabuli_tpu.')) or m == 'metabuli_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

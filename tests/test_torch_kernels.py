@@ -775,3 +775,153 @@ def test_reduced_core_matches_plain(reduced_world):
     torch.cuda.synchronize()
     _eq(got, want)
     assert gc == wc and gc["n_matches"] > 0
+
+
+# ------------------------------------------ old-format DBs (K1, K2 flag)
+@pytest.fixture(scope="module")
+def format1_world(world):
+    """A format-1 DB of the format-1 metamers of ``world``'s first 96
+    reads (taxid by genome), and its other 96 reads as queries: they
+    overlap the DB's reads with other substitutions."""
+    db_reads, reads = world[2][:96], world[2][96:]
+    codes, lens = encode_seqs_padded(db_reads)
+    mm = encode.extract_metamers_plain(torch.from_numpy(codes),
+                                       torch.from_numpy(lens), kmer_format=1)
+    v = mm.value[mm.valid].numpy().view(np.uint64)
+    t = np.repeat(np.arange(len(db_reads)) % 8 + 3,
+                  mm.valid.reshape(len(db_reads), -1).sum(1).numpy())
+    o = np.lexsort((t, v))
+    v, t = v[o], t[o].astype(np.int32)
+    keep = np.ones(len(v), bool)
+    keep[1:] = (v[1:] != v[:-1]) | (t[1:] != t[:-1])
+    return v[keep], t[keep], reads
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("syncmer", [False, True])
+def test_k1_format1_matches_plain(world, syncmer, reduced):
+    """K1's format-1 variant (either alphabet): counted as
+    extract_metamers_f1, equal to the plain version, and not format 2."""
+    codes, lens, _, _ = _batch(world[2], "cuda")
+    before = dict(build.launches)
+    got = encode.extract_metamers(codes, lens, syncmer=syncmer,
+                                  reduced=reduced, kmer_format=1)
+    assert build.launches["extract_metamers_f1"] == (
+        before["extract_metamers_f1"] + 1)
+    assert build.launches["extract_metamers"] == before["extract_metamers"]
+    want = encode.extract_metamers_plain(codes, lens, syncmer=syncmer,
+                                         reduced=reduced, kmer_format=1)
+    two = encode.extract_metamers(codes, lens, syncmer=syncmer,
+                                  reduced=reduced)
+    torch.cuda.synchronize()
+    _eq([x for x in got if x is not None], [x for x in want if x is not None])
+    assert int(got.valid.sum()) > 0 and not torch.equal(got.value, two.value)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_k2_format1_matches_plain(world, format1_world, reduced):
+    """K2 (K11 reduced) with the format flag on a format-1 index, against
+    its plain version; the h16 words take the other orientation."""
+    values, taxids, reads = format1_world
+    codes, lens, _, _ = _batch(reads, "cuda")
+    if reduced:  # the DB reads' reduced format-1 metamers
+        c, n = encode_seqs_padded(world[2][:96])
+        mm = encode.extract_metamers_plain(torch.from_numpy(c),
+                                           torch.from_numpy(n), reduced=True,
+                                           kmer_format=1)
+        values = np.unique(mm.value[mm.valid].numpy().view(np.uint64))
+        taxids = np.full(len(values), 3, np.int32)
+    index = build_dev_index(values, taxids, kmer_format=1, device="cuda",
+                            reduced=reduced)
+    mm = encode.extract_metamers(codes, lens, reduced=reduced, kmer_format=1)
+    args = (index, mm.value.reshape(-1), mm.valid.reshape(-1),
+            None if reduced else mm.dna48.reshape(-1), mm.value.shape[2],
+            4096)
+    got = search_scan(*args)
+    want = search_scan_plain(*args)
+    torch.cuda.synchronize()
+    _eq(got[:3], want[:3])
+    assert got.row.numel() > 0 and int((got.pay >> 6).max()) > 0
+
+
+def test_format1_core_matches_plain(format1_world):
+    values, taxids, reads = format1_world
+    index = build_dev_index(values, taxids, kmer_format=1, device="cuda")
+    t2s = torch.arange(64, dtype=torch.int32, device="cuda") % 5 + 1
+    batch = _batch(reads, "cuda")
+    got, gc = classify_core(index, t2s, *batch, cap=4096)
+    want, wc = classify_core(index, t2s, *batch, cap=4096, plain=True)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert gc == wc and gc["n_matches"] > 0
+
+
+# ------------------------------------------------- AA k-mer scanners (K12)
+AA_LETTERS = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV" * 4 + b"BZUOX*-acw",
+                           np.uint8)
+
+
+@pytest.mark.parametrize("syncmer,smer_len", [(False, 5), (True, 5),
+                                               (True, 3), (True, 12)])
+@pytest.mark.parametrize("shape", ["mixed", "flush"])
+def test_k12_protein_matches_plain(syncmer, smer_len, shape):
+    """Protein rows of 0 to 1,200 residues (chunk edges at 256 and 512
+    windows), invalid letters, a batch padded to create-uniref-db's 512
+    and 1,024 buckets; every slot equal."""
+    rng = np.random.default_rng(smer_len + 7 * syncmer)
+    lengths = ([0, 5, 11, 12, 13, 267, 268, 269, 523, 1200] if shape ==
+               "mixed" else list(rng.integers(250, 500, 300)))
+    seqs = [bytes(rng.choice(AA_LETTERS, n)) for n in lengths]
+    codes, lens = encode.encode_aa_seqs_padded(
+        seqs, 1280 if shape == "mixed" else 512)
+    codes = torch.from_numpy(codes).cuda()
+    lens = torch.from_numpy(lens).cuda()
+    before = build.launches["extract_aa_kmers"]
+    got = encode.extract_aa_kmers(codes, lens, syncmer=syncmer,
+                                  smer_len=smer_len)
+    assert build.launches["extract_aa_kmers"] == before + 1
+    want = encode.extract_aa_kmers_plain(codes, lens, syncmer=syncmer,
+                                         smer_len=smer_len)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("n_prob", [0.0, 0.02])
+@pytest.mark.parametrize("shape", ["mixed", "reads"])
+def test_k12_dna_matches_plain(n_prob, shape):
+    """DNA rows of 0 to 2,000 bases (every length mod 3, frames of more
+    than one chunk of windows), N runs, and a batch of 150 bp reads; every
+    slot of the six frames equal."""
+    rng = np.random.default_rng(int(n_prob * 100) + len(shape))
+    lengths = ([0, 1, 2, 3, 37, 38, 39, 40, 41, 42, 150, 151, 152, 800, 801,
+                1999, 2000] if shape == "mixed" else [150] * 512)
+    seqs = [bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), n,
+                             p=np.array([1, 1, 1, 1, 0]) * (1 - n_prob) / 4
+                             + np.array([0, 0, 0, 0, n_prob])))
+            for n in lengths]
+    codes, lens = encode_seqs_padded(seqs)
+    codes = torch.from_numpy(codes).cuda()
+    lens = torch.from_numpy(lens).cuda()
+    before = build.launches["extract_aa_kmers_dna"]
+    got = encode.extract_aa_kmers_dna(codes, lens)
+    assert build.launches["extract_aa_kmers_dna"] == before + 1
+    want = encode.extract_aa_kmers_dna_plain(codes, lens)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert int(got[2][:, :3].sum()) > 0 and int(got[2][:, 3:].sum()) > 0
+
+
+def test_k12_empty_batches():
+    """No rows, or rows too short for a window: no launch, empty outputs."""
+    for seqs in ([], [b"MKV"]):
+        codes, lens = encode.encode_aa_seqs_padded(seqs, 8)
+        before = build.launches["extract_aa_kmers"]
+        got = encode.extract_aa_kmers(torch.from_numpy(codes).cuda(),
+                                      torch.from_numpy(lens).cuda())
+        assert build.launches["extract_aa_kmers"] == before
+        assert got[0].shape == (len(seqs), 0)
+    codes, lens = encode_seqs_padded([b"ACGTACGTAC"])
+    got = encode.extract_aa_kmers_dna(torch.from_numpy(codes).cuda(),
+                                      torch.from_numpy(lens).cuda())
+    assert got[0].shape == (1, 6, 0)
