@@ -117,8 +117,34 @@ Phases, one line each; any failure exits non-zero:
             fragments of 100 residues (auto-detected): the DB's diffIdx,
             info and tree digests and both classifications digests must
             equal the JAX package's on the CPU (constants below)
+  sharded   the classify phase's DB and reads through the CLI over two
+            processes on the one card (--num-processes 2 --db-shards 2
+            --dist-backend gloo: each rank builds half the table, the db
+            axis's all_gather goes through pinned host buffers): per rank
+            DB load s, shard rows, peak device GiB, reads/s, the gather's
+            MB and ms a batch and K1-K4's launches (K2 once a batch a
+            rank); the classifications, report and Krona file must equal
+            the classify phase's byte for byte
+  sharded_a2a  tools.sharded_step over the same two ranks and the
+            classify phase's searchable table (saved as .npy by the
+            kernels phase): the fused step's gather and all_to_all routes
+            on the first 8,192 reads, per route its ms, the collectives'
+            MB and ms, its counters; every read's line must be equal
+            between the routes and to the classify phase's file, and each
+            rank's device merge equal to the host merges
+  sharded_mesh  dbbuild's updated DB and the 65,536 reads over four
+            processes, a 2 x 2 (data, db) mesh on gloo, once on the fused
+            route and once with METABULI_TPU_DIST_FUSED=0 (the plain
+            route, the native host assign): the classifications' digest
+            and classified count must equal the JAX package's (dbbuild's
+            constants)
+  nccl      the same with one process through the distributed path on
+            NCCL (--num-processes 1 --db-shards 1 --dist-backend nccl):
+            NCCL initialises and its collectives run on the card, once a
+            batch; the digest must equal the JAX package's
 
-Each CLI run of a phase starts with every launch count at 0 and reads
+Each spawned rank has a timeout; the first rank that fails, or the
+timeout, kills the others and fails the phase. Each CLI run of a phase starts with every launch count at 0 and reads
 them when it returns. The last three lines are the kernels' JSON record
 (K1-K4, K11, K1 format 1 and K12's two entry points, each with its
 launches in each phase's run; ``launches`` is the main run of each: the
@@ -263,9 +289,13 @@ MAIN_KERNELS = ("extract_metamers", "search_scan", "chain_matches",
                 "combine_paths")
 
 
+T0 = time.perf_counter()
+
+
 def say(phase: str, **kv) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
-          flush=True)
+    """One line of a phase, with the script's seconds so far."""
+    print(f"[{phase}] t={time.perf_counter() - T0:.1f} "
+          + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
 
 def fail(phase: str, msg: str) -> None:
@@ -1128,6 +1158,203 @@ def pipeline_phase(s) -> None:
         fail("pipeline", f"{s['classified']} reads classified")
 
 
+# ------------------------------------------------------------ item 13
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(tmp, phase, argvs, timeout, env=None) -> list:
+    """One process per argv (``python -m ...`` from the repo root), all
+    started together, their output in files. The first that fails, or the
+    timeout, kills the rest and fails the phase. Returns each rank's last
+    JSON line of output (a CLI run's summary), or None."""
+    outs = [open(os.path.join(tmp, f"{phase}_rank{i}.{k}"), "w+")
+            for i in range(len(argvs)) for k in ("out", "err")]
+    procs = [subprocess.Popen([sys.executable, "-m", *a], cwd=ROOT,
+                              stdout=outs[2 * i], stderr=outs[2 * i + 1],
+                              env={**os.environ, **(env or {})})
+             for i, a in enumerate(argvs)]
+    end = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if (time.monotonic() > end
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        rcs = [p.wait() for p in procs]
+    res = []
+    for i, rc in enumerate(rcs):
+        fh_out, fh_err = outs[2 * i], outs[2 * i + 1]
+        fh_out.seek(0)
+        fh_err.seek(0)
+        lines = [ln for ln in fh_out.read().splitlines()
+                 if ln.startswith("{")]
+        if rc != 0:
+            sys.stderr.write(f"[{phase}] rank {i} exited {rc}:\n"
+                             + fh_err.read()[-3000:])
+        res.append(json.loads(lines[-1]) if lines else None)
+        fh_out.close()
+        fh_err.close()
+    if any(rcs):
+        fail(phase, f"ranks exited {rcs} (timeout {timeout} s)")
+    return res
+
+
+def rank_lines(phase, ranks) -> None:
+    """Each CLI rank's summary: DB load, shard rows, peak device GiB,
+    reads/s, the gather's MB and ms a batch, the kernels' launches."""
+    for s in ranks:
+        n = max(1, s["gathers"])
+        say(phase, rank=s["rank"], mesh=s["mesh"], backend=s["backend"],
+            db_load_s=round(s["load_s"], 3), shard_rows=s["shard_rows"],
+            peak_mem_gib=round(s.get("peak_mem_gib", 0.0), 3),
+            reads_per_s=round(s["reads"] / s["classify_s"], 1),
+            classify_s=round(s["classify_s"], 3), gathers=s["gathers"],
+            gather_mb_per_batch=round(s["gather_bytes"] / n / 1e6, 3),
+            gather_ms_per_batch=round(s["gather_ms"] / n, 3),
+            finish_s=round(s["finish_s"], 3), launches=s["launches"])
+        say(phase, rank=s["rank"],
+            stage_ms={k: round(v, 3) for k, v in s["stage_ms"].items()})
+
+
+def dist_argv(fq, db, out, job, world, shards, backend, port, rank):
+    return ["metabuli_tpu_torch.cli", "classify", fq, db, out, job,
+            "--seq-mode", "1", "--batch-reads", "8192", "--num-processes",
+            str(world), "--process-id", str(rank), "--coordinator",
+            f"localhost:{port}", "--db-shards", str(shards),
+            "--dist-backend", backend]
+
+
+def sharded_phase(tmp, fq, db) -> list:
+    """The classify phase's DB and reads over two gloo ranks on the one
+    card (see the module docstring); returns each rank's launch counts."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "sharded_out")
+    port = free_port()
+    ranks = spawn_ranks(tmp, "sharded", [
+        dist_argv(fq, db, out, "sharded", 2, 2, "gloo", port, i)
+        for i in range(2)], timeout=480)
+    rank_lines("sharded", ranks)
+    same = {kind: sha256_of(os.path.join(out, f"sharded_{kind}"))
+            == sha256_of(os.path.join(tmp, "out", f"smoke_{kind}"))
+            for kind in ("classifications.tsv", "report.tsv", "krona.html")}
+    say("sharded", classified=ranks[0]["classified"], equal_classify=same,
+        phase_s=round(time.perf_counter() - t0, 3))
+    for s in ranks:
+        if min(s["launches"].get(k, 0) for k in MAIN_KERNELS) == 0:
+            fail("sharded", f"rank {s['rank']}: a kernel never launched")
+        if s["launches"]["search_scan"] != s["gathers"]:
+            fail("sharded", f"rank {s['rank']}: K2 not once a batch")
+    if ranks[0]["classified"] != CLASSIFIED or not all(same.values()):
+        fail("sharded", "the files differ from the classify phase's")
+    return [s["launches"] for s in ranks]
+
+
+def sharded_a2a_phase(tmp, fq, db, table, cap) -> None:
+    """Both routes of the sharded fused step on the first 8,192 reads over
+    two gloo ranks (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "a2a")
+    port = free_port()
+    spawn_ranks(tmp, "sharded_a2a", [[
+        "metabuli_tpu_torch.tools.sharded_step", db, fq, out, "--world", "2",
+        "--rank", str(i), "--coordinator", f"localhost:{port}",
+        "--db-shards", "2", "--backend", "gloo", "--device", "cuda",
+        "--batch-reads", "8192", "--table", table, "--cap", str(cap)]
+        for i in range(2)], timeout=300)
+    ranks = []
+    for i in range(2):
+        with open(f"{out}.rank{i}.json") as fh:
+            ranks.append(json.load(fh))
+    lines = {}
+    for r in ranks:
+        for route, v in r["routes"].items():
+            lines.setdefault(route, {}).update(
+                {int(q): ln for q, ln in v["lines"].items()})
+            say("sharded_a2a", rank=r["rank"], route=route,
+                reads=r["batch_reads"], shard_rows=r["shard_rows"],
+                shard_build_s=round(r["shard_load_s"], 3),
+                ms=round(v["ms"], 3), collectives=v["gathers"],
+                collective_mb=round(v["gather_bytes"] / 1e6, 3),
+                collective_ms=round(v["gather_ms"], 3),
+                overflowed=v["overflowed"],
+                n_matches=[c["n_matches"] for c in v["counts"]],
+                launches=v["launches"])
+    with open(os.path.join(tmp, "out", "smoke_classifications.tsv")) as fh:
+        smoke = [ln for ln in fh if not ln.startswith("#")][:8192]
+    got = {route: [v.get(q) for q in range(8192)]
+           for route, v in lines.items()}
+    agree = [r["merges_agree"] for r in ranks]
+    say("sharded_a2a", routes_equal=got["alltoall"] == got["gather"],
+        equal_classify=got["gather"] == smoke, merges_agree=agree,
+        phase_s=round(time.perf_counter() - t0, 3))
+    if got["alltoall"] != got["gather"] or got["gather"] != smoke:
+        fail("sharded_a2a", "the routes' lines differ")
+    if not all(agree):
+        fail("sharded_a2a", "a device merge differs from the host merges")
+
+
+def sharded_mesh_phase(tmp, fq) -> dict:
+    """dbbuild's updated DB over a 2 x 2 gloo mesh, fused and plain (see
+    the module docstring); returns each run's per-rank launch counts."""
+    t0 = time.perf_counter()
+    udb = os.path.join(tmp, "updated_db")
+    runs = {}
+    for run, env in (("fused", {}), ("plain",
+                                     {"METABULI_TPU_DIST_FUSED": "0"})):
+        out = os.path.join(tmp, f"mesh_{run}")
+        port = free_port()
+        ranks = spawn_ranks(tmp, f"sharded_mesh_{run}", [
+            dist_argv(fq, udb, out, "mesh", 4, 2, "gloo", port, i)
+            for i in range(4)], timeout=300, env=env)
+        rank_lines(f"sharded_mesh_{run}", ranks)
+        digest = sha256_of(os.path.join(out, "mesh_classifications.tsv"))
+        say("sharded_mesh", run=run, classified=ranks[0]["classified"],
+            classifications_sha256=digest,
+            equal_jax=digest == UPDATED_CLASSIFICATIONS_SHA256)
+        if (ranks[0]["classified"] != UPDATED_CLASSIFIED
+                or digest != UPDATED_CLASSIFICATIONS_SHA256):
+            fail("sharded_mesh", f"{run}: the classifications differ from "
+                                 "the JAX package's")
+        kernels = MAIN_KERNELS if run == "fused" else MAIN_KERNELS[:2]
+        for s in ranks:
+            if min(s["launches"].get(k, 0) for k in kernels) == 0:
+                fail("sharded_mesh", f"{run} rank {s['rank']}: a kernel "
+                                     "never launched")
+        runs[run] = [s["launches"] for s in ranks]
+    say("sharded_mesh", phase_s=round(time.perf_counter() - t0, 3))
+    return runs
+
+
+def nccl_phase(tmp, fq) -> list:
+    """One process through the distributed path on NCCL (see the module
+    docstring); returns its launch counts."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "nccl_out")
+    (s,) = spawn_ranks(tmp, "nccl", [dist_argv(
+        fq, os.path.join(tmp, "updated_db"), out, "nccl", 1, 1, "nccl",
+        free_port(), 0)], timeout=300)
+    rank_lines("nccl", [s])
+    digest = sha256_of(os.path.join(out, "nccl_classifications.tsv"))
+    say("nccl", classified=s["classified"], classifications_sha256=digest,
+        equal_jax=digest == UPDATED_CLASSIFICATIONS_SHA256,
+        phase_s=round(time.perf_counter() - t0, 3))
+    if s["backend"] != "nccl" or s["gathers"] != s["launches"].get(
+            "search_scan", -1):
+        fail("nccl", f"the NCCL collectives did not run once a batch: {s}")
+    if digest != UPDATED_CLASSIFICATIONS_SHA256:
+        fail("nccl", "the classifications differ from the JAX package's")
+    return [s["launches"]]
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     # ---- device
@@ -1220,6 +1447,11 @@ def main() -> int:
         say("kernels", db_load_s=round(clf.load_s, 3), cap=clf.cap,
             index_rows=clf.dev_index.n,
             resident_gib=round(resident / 2**30, 3))
+        # the searchable table for sharded_a2a's ranks (no second decode)
+        table, smoke_cap = os.path.join(tmp, "table"), clf.cap
+        np.save(table + ".values.npy", clf.index.values[:-1])
+        np.save(table + ".taxids.npy",
+                clf.index.taxids[:-1].astype(np.int32))
         metas, rows = next(clf._iter_batches(fq, None))
         timings = {}
         kernel_phase(clf, metas, rows, timings, k1_shapes=[
@@ -1303,6 +1535,16 @@ def main() -> int:
                                     dbbuild_rate)
         grp_launches = grouping_phase(tmp, fq, dev)
         uni_launches = uniref_phase(tmp, dev, timings)
+
+        # ---- item 13: sharded, sharded_a2a, sharded_mesh, nccl
+        rank_runs = {"sharded": sharded_phase(tmp, fq, db)}
+        sharded_a2a_phase(tmp, fq, db, table, smoke_cap)
+        for ext in (".values.npy", ".taxids.npy"):
+            os.remove(table + ext)
+        mesh_runs = sharded_mesh_phase(tmp, fq)
+        rank_runs.update({"sharded_mesh": mesh_runs["fused"],
+                          "sharded_mesh_plain": mesh_runs["plain"],
+                          "nccl": nccl_phase(tmp, fq)})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1328,6 +1570,11 @@ def main() -> int:
     for name, _, _ in KERNELS:
         timings[name].update({f"launches_{phase}": run[name]
                               for phase, run in phase_runs.items()})
+    # the multi-process phases: one count per rank
+    for name in MAIN_KERNELS:
+        timings[name].update({f"launches_{phase}": [r.get(name, 0)
+                                                    for r in runs]
+                              for phase, runs in rank_runs.items()})
     # the main path of each kernel: K11's is the reduced run, K1 format
     # 1's the format1 classify run, K12's create-uniref-db (protein rows)
     # and assign_uniref of the DNA reads

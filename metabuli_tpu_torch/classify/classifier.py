@@ -117,13 +117,15 @@ class StageTimer:
 
 class Job(NamedTuple):
     """One dispatched batch: its reads, the copy of its device results in
-    flight to the host, its counters and its stage marks."""
+    flight to the host, its counters, its stage marks and the run's index
+    of its first read."""
 
     metas: list
     host: HostCopy
     counts: dict
     read_lens: np.ndarray
     marks: list
+    first: int = 0
 
 
 def overlap_s(a, b) -> float:
@@ -194,25 +196,8 @@ class Classifier:
         # Reference quirk kept for bit-identity (`KmerMatcher.cpp:363-406`):
         # the last k-mer of the database never becomes a candidate, so it
         # is left out of the searchable table.
-        values = self.index.values[:-1]
-        taxids = self.index.taxids[:-1].astype(np.int32)
-        # chunks: as many as --max-ram asks for at BYTES_PER_ROW (as the
-        # reference package decides, on the whole table), and at least as
-        # many as keep one chunk's index build within the free memory
-        rows = len(self.index.values)
-        budget = int(params.max_ram) << 30
-        min_chunks = 1
-        if self.device.type == "cuda":
-            min_chunks = build_chunks(
-                rows, torch.cuda.mem_get_info(self.device)[0])
-        if rows * BYTES_PER_ROW > budget or min_chunks > 1:
-            self.dev_index = ChunkedIndex(
-                values, taxids, budget, reduced=reduced, device=self.device,
-                min_chunks=min_chunks, kmer_format=params.kmer_format)
-        else:
-            self.dev_index = build_dev_index(
-                values, taxids, kmer_format=params.kmer_format,
-                device=self.device, reduced=reduced)
+        self.dev_index = self._build_index(
+            self.index.values[:-1], self.index.taxids[:-1].astype(np.int32))
         self.d_species = torch.as_tensor(
             self.index.species_table().astype(np.int32), device=self.device)
         if self.device.type == "cuda":
@@ -233,6 +218,25 @@ class Classifier:
         self.timer = StageTimer(self.device)
         self.stats = {"matches": 0, "kmers": 0, "reads": 0,
                       "device_s": 0.0, "tax_s": 0.0}
+
+    def _build_index(self, values: np.ndarray, taxids: np.ndarray):
+        """The searchable table on the device: one ``DevIndex``, or AA-
+        aligned chunks as many as --max-ram asks for at BYTES_PER_ROW (as
+        the reference package decides, on the whole table) and at least as
+        many as keep one chunk's index build within the free memory."""
+        params, reduced = self.par, bool(self.par.reduced_aa)
+        rows = len(self.index.values)
+        budget = int(params.max_ram) << 30
+        min_chunks = 1
+        if self.device.type == "cuda":
+            min_chunks = build_chunks(
+                rows, torch.cuda.mem_get_info(self.device)[0])
+        if rows * BYTES_PER_ROW > budget or min_chunks > 1:
+            return ChunkedIndex(
+                values, taxids, budget, reduced=reduced, device=self.device,
+                min_chunks=min_chunks, kmer_format=params.kmer_format)
+        return build_dev_index(values, taxids, kmer_format=params.kmer_format,
+                               device=self.device, reduced=reduced)
 
     def _auto_batch(self) -> tuple[int, int, int]:
         """(reads, bases, bytes) per batch from free device memory (the
@@ -328,22 +332,28 @@ class Classifier:
         d_pos = as_dev([r[2] for r in rows], np.int32)
         d_qid = as_dev([r[1] for r in rows], np.int32)
         self.timer.mark("upload")
-        core = dict(cap=self.cap, syncmer=bool(par.syncmer),
-                    smer_len=par.smer_len, plain=plain, timer=self.timer)
-        if self.mode == "device":
-            handle, counts = self.device_taxonomer.dispatch(
-                self.dev_index, self.d_species, d_codes, d_lens, d_pos,
-                d_qid, read_lens, **core)
-            host = self.device_taxonomer.start_drain(handle)
-        else:
-            m, counts = classify_core(self.dev_index, self.d_species,
-                                      d_codes, d_lens, d_pos, d_qid, **core)
-            host = to_host_async(m)
+        host, counts = self._device_stages(d_codes, d_lens, d_pos, d_qid,
+                                           read_lens, plain)
         marks = self.timer.stop()
         self.stats["device_s"] += time.perf_counter() - t0
         self.stats["kmers"] += counts["total_kmers"]
         self.stats["matches"] += counts["n_matches"]
         return Job(metas, host, counts, read_lens, marks)
+
+    def _device_stages(self, d_codes, d_lens, d_pos, d_qid, read_lens,
+                       plain: bool):
+        """A batch's device stages, ending with the copy of their results
+        to the host queued: (that ``HostCopy``, the match counters)."""
+        core = dict(cap=self.cap, syncmer=bool(self.par.syncmer),
+                    smer_len=self.par.smer_len, plain=plain, timer=self.timer)
+        if self.mode == "device":
+            handle, counts = self.device_taxonomer.dispatch(
+                self.dev_index, self.d_species, d_codes, d_lens, d_pos,
+                d_qid, read_lens, **core)
+            return self.device_taxonomer.start_drain(handle), counts
+        m, counts = classify_core(self.dev_index, self.d_species,
+                                  d_codes, d_lens, d_pos, d_qid, **core)
+        return to_host_async(m), counts
 
     def _finish_batch(self, job: Job):
         """Wait for a batch's copy and finish its reads on the host (the
@@ -406,14 +416,77 @@ class Classifier:
                                for meta, rc in zip(metas, results))
         return total_reads + len(metas), False
 
+    def _run_batches(self, batches, emit) -> dict:
+        """Run ``batches`` ((metas, rows) pairs) through the depth-2
+        pipeline: the worker finishes batch i while this thread dispatches
+        batch i+1, and ``emit(job, results)`` takes each batch in order on
+        this thread. --print-log stays serial: its Python taxonomer holds
+        the interpreter lock throughout and prints, so a worker would
+        overlap nothing and could interleave its lines. Returns the
+        taxonomer calls' host-clock seconds (``finish_s``), their part
+        during which this thread parsed or dispatched another batch
+        (``finish_overlap_s``) and the CPU seconds of the thread that made
+        them (``finish_cpu_s``, their OpenMP helpers not counted)."""
+        spans = {"finish": [], "busy": []}
+        finish_cpu = 0.0
+
+        def done(job, results, clock):
+            nonlocal finish_cpu
+            t0, t1, t2, cpu = clock
+            spans["finish"].append((t1, t2))
+            finish_cpu += cpu
+            self.stats["tax_s"] += t2 - t0
+            self.timer.resolve(job.marks)
+            self.timer.add("finish", (t2 - t1) * 1e3)
+            emit(job, results)
+
+        pool = (None if self.mode == "log" else
+                ThreadPoolExecutor(1, thread_name_prefix="metabuli-finish"))
+        try:
+            inflight = None
+            while True:
+                t0 = time.perf_counter()
+                nxt = next(batches, None)
+                job = fut = None
+                if nxt is not None:
+                    job = self._dispatch(*nxt)
+                spans["busy"].append((t0, time.perf_counter()))
+                if job is not None:
+                    if pool is None:
+                        done(job, *self._finish_batch(job))
+                        continue
+                    fut = pool.submit(self._finish_batch, job)
+                if inflight is not None:
+                    done(inflight[0], *inflight[1].result())
+                if nxt is None:
+                    break
+                inflight = (job, fut)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+        return {"finish_s": sum(b - a for a, b in spans["finish"]),
+                "finish_overlap_s": overlap_s(spans["finish"], spans["busy"]),
+                "finish_cpu_s": finish_cpu}
+
+    def _write_reports(self, out_dir: str, job_id: str, tax_counts: dict,
+                       total_reads: int):
+        """The Kraken-style report and the Krona file of a run's clade
+        counts."""
+        with open(os.path.join(out_dir, f"{job_id}_report.tsv"), "w") as fh:
+            self.reporter.write_report(fh, tax_counts, total_reads)
+        prelude = None
+        if self.par.krona_prelude:
+            with open(self.par.krona_prelude) as pf:
+                prelude = pf.read()
+        with open(os.path.join(out_dir, f"{job_id}_krona.html"), "w") as fh:
+            self.reporter.write_krona(fh, tax_counts, total_reads,
+                                      prelude=prelude)
+
     # ------------------------------------------------------------------- main
     def classify_file(self, q1: str, q2: str | None, out_dir: str,
                       job_id: str, resume: bool = False) -> dict:
         os.makedirs(out_dir, exist_ok=True)
         cls_path = os.path.join(out_dir, f"{job_id}_classifications.tsv")
-        report_path = os.path.join(out_dir, f"{job_id}_report.tsv")
-        krona_path = os.path.join(out_dir, f"{job_id}_krona.html")
-
         tax_counts: dict[int, int] = {}
         total_reads = 0
         first = True
@@ -435,66 +508,19 @@ class Classifier:
             first = False
         mappings = [] if self.par.em else None
         all_results = [] if self.par.em else None
-        # host-clock spans: the worker's taxonomer calls, and the main
-        # thread's parse and dispatch of each batch
-        spans = {"finish": [], "busy": []}
-        finish_cpu = 0.0
 
-        def emit(job, results, clock):
-            nonlocal total_reads, first, finish_cpu
-            t0, t1, t2, cpu = clock
-            spans["finish"].append((t1, t2))
-            finish_cpu += cpu
-            self.stats["tax_s"] += t2 - t0
-            self.timer.resolve(job.marks)
-            self.timer.add("finish", (t2 - t1) * 1e3)
+        def emit(job, results):
+            nonlocal total_reads, first
             total_reads, first = self._emit_batch(
                 fh, job.metas, results, tax_counts, total_reads, first,
                 mappings, all_results)
 
-        # depth-2 pipeline: the worker finishes batch i while this thread
-        # dispatches batch i+1. --print-log stays serial: its Python
-        # taxonomer holds the interpreter lock throughout and prints, so a
-        # worker would overlap nothing and could interleave its lines.
-        pool = (None if self.mode == "log" else
-                ThreadPoolExecutor(1, thread_name_prefix="metabuli-finish"))
         t_run, cpu_run = time.perf_counter(), time.thread_time()
-        try:
-            with open(cls_path, "a" if skip else "w") as fh:
-                batches = self._iter_batches(q1, q2, skip=skip)
-                inflight = None
-                while True:
-                    t0 = time.perf_counter()
-                    nxt = next(batches, None)
-                    job = fut = None
-                    if nxt is not None:
-                        job = self._dispatch(*nxt)
-                    spans["busy"].append((t0, time.perf_counter()))
-                    if job is not None:
-                        if pool is None:
-                            emit(job, *self._finish_batch(job))
-                            continue
-                        fut = pool.submit(self._finish_batch, job)
-                    if inflight is not None:
-                        emit(inflight[0], *inflight[1].result())
-                    if nxt is None:
-                        break
-                    inflight = (job, fut)
-        finally:
-            if pool is not None:
-                pool.shutdown(wait=True, cancel_futures=True)
+        with open(cls_path, "a" if skip else "w") as fh:
+            run = self._run_batches(self._iter_batches(q1, q2, skip=skip),
+                                    emit)
 
-        with open(report_path, "w") as fh:
-            self.reporter.write_report(fh, tax_counts, total_reads)
-        with open(krona_path, "w") as fh:
-            prelude = None
-            if self.par.krona_prelude:
-                with open(self.par.krona_prelude) as pf:
-                    prelude = pf.read()
-            self.reporter.write_krona(fh, tax_counts, total_reads,
-                                      prelude=prelude)
-
-        finish_s = sum(b - a for a, b in spans["finish"])
+        self._write_reports(out_dir, job_id, tax_counts, total_reads)
         summary = {
             "reads": total_reads - skip,
             "classified": total_reads - tax_counts.get(0, 0),
@@ -509,9 +535,7 @@ class Classifier:
             # not counted) and of this thread over the run: the two threads
             # share one interpreter lock, so a finish that waits for it
             # runs its clock past its CPU seconds
-            "finish_s": finish_s,
-            "finish_overlap_s": overlap_s(spans["finish"], spans["busy"]),
-            "finish_cpu_s": finish_cpu,
+            **run,
             "main_cpu_s": time.thread_time() - cpu_run,
         }
         if self.par.em and total_reads:

@@ -110,15 +110,21 @@ class DeviceTaxonomer:
             index, d_species, codes, lens, pos_offsets, qid_offsets,
             cap=cap, syncmer=syncmer, smer_len=smer_len, plain=plain,
             timer=timer)
+        return self.tail(m, read_lens_by_qid, plain=plain,
+                         timer=timer), counts
+
+    def tail(self, m: MatchColumns, read_lens_by_qid, *, plain: bool = False,
+             timer=None):
+        """``taxonomer_tail`` of sorted match columns with this
+        taxonomer's tables: the handle ``start_drain`` copies out."""
         rl = torch.as_tensor(
             np.maximum(np.asarray(read_lens_by_qid, np.int32), 0)
             if len(read_lens_by_qid) else np.zeros(1, np.int32),
             device=self.device)
-        groups, taxcnt = taxonomer_tail(
+        return taxonomer_tail(
             m, self.dt, self.min_depth, rl, dna_shift=self.p.dna_shift,
             max_shift=self.p.max_codon_shift, kmer_format=self.p.kmer_format,
             plain=plain, timer=timer)
-        return (groups, taxcnt), counts
 
     def start_drain(self, handle) -> HostCopy:
         """End a batch's dispatch: queue the copies of the small group and

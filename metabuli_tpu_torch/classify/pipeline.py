@@ -433,19 +433,17 @@ def sort_by_keys(keys, cols):
     return [c[order] for c in cols]
 
 
-def classify_core(index, tax2species: torch.Tensor,
-                  codes: torch.Tensor, lens: torch.Tensor,
-                  pos_offsets: torch.Tensor, qid_offsets: torch.Tensor, *,
-                  cap: int, syncmer: bool = False, smer_len: int = 5,
-                  plain: bool = False, timer=None):
-    """Encoded reads -> (MatchColumns, counters), against a ``DevIndex``
-    or a ``chunked.ChunkedIndex``.
-
-    K1 runs once; K2 (K11 on a reduced index) and the fetch run against
-    each resident index in turn, a chunked index copying its chunks in one
-    at a time. The chunks' kept rows, concatenated in chunk order, go
-    through the one stable sort: its ties lie within one query slot, whose
-    amino-acid group lies in one chunk, so the order is the single index's.
+def match_parts(index, tax2species: torch.Tensor,
+                codes: torch.Tensor, lens: torch.Tensor,
+                pos_offsets: torch.Tensor, qid_offsets: torch.Tensor, *,
+                cap: int, syncmer: bool = False, smer_len: int = 5,
+                plain: bool = False, timer=None):
+    """Encoded reads -> (one unsorted MatchColumns per resident index of
+    ``index``, counters): K1 once, then K2 (K11 on a reduced index) and
+    the fetch against each resident index in turn, a chunked index
+    copying its chunks in one at a time. ``sort_matches`` orders them.
+    ``counts["total_kmers"]`` is a device tensor: reading it waits for
+    the device, so a caller reads it once its next stages are queued.
 
     ``plain=True`` runs the plain versions of K1 and K2 wherever the
     tensors lie (the kernel-versus-plain check on the card); otherwise the
@@ -462,50 +460,83 @@ def classify_core(index, tax2species: torch.Tensor,
     B, _, W = mm.value.shape
     q = (mm.value.reshape(-1), mm.valid.reshape(-1),
          None if reduced else mm.dna48.reshape(-1))
-    slots, words, pays = [], [], []
+    q_pos = mm.pos.reshape(-1)
+    parts = []
     n_over = 0
     for ix in index.on_device(mark):
         cand = scan(ix, *q, W, cap)
         mark("search_scan")
-        slots.append(cand.slot)
-        words.append(ix.taxdna[cand.row.to(torch.int64)])
-        pays.append(cand.pay)
+        tw = ix.taxdna[cand.row.to(torch.int64)]
+        slot = cand.slot.to(torch.int64)
+        read = torch.div(slot, 6 * W, rounding_mode="floor") if W else slot
+        taxid = (tw & 0xFFFFFFFF).to(torch.int32)
+        if reduced:
+            # the full 32-bit codon-number word, as int32 bits
+            dna = srl(tw, 32)
+            dna = (dna - ((dna & 0x80000000) << 1)).to(torch.int32)
+        else:
+            dna = (srl(tw, 32) & 0xFFFFFF).to(torch.int32)
+        pay = cand.pay
+        packed = (pay & 7) | (((pay >> 3) & 7) << 3) | ((pay >> 6) << 11)
+        parts.append(MatchColumns(
+            qid_offsets[read], tax2species[taxid.to(torch.int64)],
+            q_pos[slot] + pos_offsets[read], dna, taxid, packed))
         n_over += cand.n_over_cap
-    cat = lambda ts: ts[0] if len(ts) == 1 else torch.cat(ts)
-    slot, tw, pay = cat(slots).to(torch.int64), cat(words), cat(pays)
-    read = torch.div(slot, 6 * W, rounding_mode="floor") if W else slot
-    qid = qid_offsets[read]
-    pos = mm.pos.reshape(-1)[slot] + pos_offsets[read]
-    taxid = (tw & 0xFFFFFFFF).to(torch.int32)
-    if reduced:
-        # the full 32-bit codon-number word, as int32 bits
-        dna = srl(tw, 32)
-        dna = (dna - ((dna & 0x80000000) << 1)).to(torch.int32)
-    else:
-        dna = (srl(tw, 32) & 0xFFFFFF).to(torch.int32)
-    species = tax2species[taxid.to(torch.int64)]
-    frame = pay & 7
-    ham = (pay >> 3) & 7
-    packed = frame | (ham << 3) | ((pay >> 6) << 11)
-    mark("fetch")
+        mark("fetch")
+    counts = {
+        "n_matches": sum(int(p.qid.numel()) for p in parts),
+        "n_over_cap": n_over,
+        "total_kmers": mm.valid.sum(),
+    }
+    return parts, counts
+
+
+def cat_columns(parts) -> MatchColumns:
+    """Match columns of several parts, concatenated in order."""
+    if len(parts) == 1:
+        return parts[0]
+    return MatchColumns(*(torch.cat(c) for c in zip(*parts)))
+
+
+def sort_matches(m: MatchColumns, reduced: bool = False) -> MatchColumns:
+    """Match columns in the reference order (qid, species, frame, pos,
+    hamming, dna), by one stable sort. Rows that tie on every key come
+    from one query slot, whose amino-acid group lies in one resident
+    index (chunk or shard), so concatenating the parts in index order
+    keeps the single index's order."""
     i64 = lambda x: x.to(torch.int64)
-    k1 = (i64(qid) << 32) | i64(species)
+    frame = m.packed & 7
+    ham = (m.packed >> 3) & 7
+    k1 = (i64(m.qid) << 32) | i64(m.species)
     if reduced:
         # 32 bits of dna leave no room beside pos: a third key, the dna
         # compared unsigned (the reference package flips its sign bit)
-        keys = [k1, (i64(frame) << 35) | (i64(pos) << 3) | i64(ham),
-                i64(dna) & 0xFFFFFFFF]
+        keys = [k1, (i64(frame) << 35) | (i64(m.pos) << 3) | i64(ham),
+                i64(m.dna) & 0xFFFFFFFF]
     else:
-        keys = [k1, (i64(frame) << 59) | (i64(pos) << 27) | (i64(ham) << 24)
-                | i64(dna)]
-    cols = sort_by_keys(keys, (qid, species, pos, dna, taxid, packed))
-    mark("sort")
-    counts = {
-        "n_matches": int(qid.numel()),
-        "n_over_cap": n_over,
-        "total_kmers": int(mm.valid.sum()),
-    }
-    return MatchColumns(*cols), counts
+        keys = [k1, (i64(frame) << 59) | (i64(m.pos) << 27)
+                | (i64(ham) << 24) | i64(m.dna)]
+    return MatchColumns(*sort_by_keys(keys, m))
+
+
+def classify_core(index, tax2species: torch.Tensor,
+                  codes: torch.Tensor, lens: torch.Tensor,
+                  pos_offsets: torch.Tensor, qid_offsets: torch.Tensor, *,
+                  cap: int, syncmer: bool = False, smer_len: int = 5,
+                  plain: bool = False, timer=None):
+    """Encoded reads -> (MatchColumns, counters), against a ``DevIndex``
+    or a ``chunked.ChunkedIndex``: ``match_parts``, then the parts'
+    rows, concatenated in index order, through the one stable sort
+    (``sort_matches``), so a chunked index's order is the single
+    index's."""
+    parts, counts = match_parts(
+        index, tax2species, codes, lens, pos_offsets, qid_offsets, cap=cap,
+        syncmer=syncmer, smer_len=smer_len, plain=plain, timer=timer)
+    m = sort_matches(cat_columns(parts), index.reduced)
+    if timer is not None:
+        timer.mark("sort")
+    counts["total_kmers"] = int(counts["total_kmers"])
+    return m, counts
 
 
 # the reference package's host match fields (``pipeline.FIELDS`` there)

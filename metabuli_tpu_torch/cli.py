@@ -11,8 +11,9 @@ command for command, with the same names, arguments and outputs:
 ``classify``, ``build``, ``updateDB``, ``filter``, ``grouping`` (K1),
 ``create-uniref-db`` and ``assign_uniref`` (K12) take ``--device
 cuda|cpu`` (default cuda: without a card they raise; cpu runs the plain
-PyTorch versions of the kernels). ``classify`` has no multi-process
-flags (item 13).
+PyTorch versions of the kernels). ``classify`` with
+``--num-processes``, ``--db-shards`` or ``--dist-backend`` runs over a
+(data, db) mesh of processes (``parallel.dist_classify``).
 """
 
 from __future__ import annotations
@@ -41,15 +42,24 @@ def _classify(argv):
     ap.add_argument("--lineage", type=int, default=None,
                     help="print lineage information (reference flag name)")
     ap.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    ap.add_argument("--coordinator", default="",
+                    help="torch.distributed coordinator host:port "
+                         "(multi-process)")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--db-shards", type=int, default=0,
+                    help="db-axis size of the (data, db) mesh "
+                         "(0 = auto; >1 shards the metamer table)")
+    ap.add_argument("--dist-backend", default="", choices=("", "nccl", "gloo"),
+                    help="process-group backend (default nccl on a card, "
+                         "gloo on the CPU; gloo lets several processes "
+                         "share one card); asking for one runs the "
+                         "distributed path even with one process")
     add_to_parser(ap, ClassifyParams)
     args = ap.parse_args(argv)
     par = from_args(ClassifyParams, args)
     if args.lineage is not None:
         par.print_lineage = args.lineage
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        from .classify.classifier import not_ported
-
-        raise not_ported("multi-process classify", "item 13")
     files = args.files
     if par.seq_mode == 2:
         if len(files) != 5:
@@ -79,6 +89,18 @@ def _classify(argv):
             for p in problems:
                 print(f"  {p}", file=sys.stderr)
             return 1
+    if args.num_processes > 1 or args.db_shards > 1 or args.dist_backend:
+        from .parallel.dist_classify import classify_distributed
+
+        summary = classify_distributed(
+            db_dir, q1, q2, out_dir, job_id, par,
+            args.coordinator or None, args.num_processes, args.process_id,
+            n_db=args.db_shards or None, device=args.device,
+            backend=args.dist_backend or None,
+        )
+        if par.verbosity > 0:
+            print(json.dumps(summary))
+        return 0
     from .classify.classifier import Classifier
 
     clf = Classifier(db_dir, par, device=args.device)

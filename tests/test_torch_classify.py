@@ -138,11 +138,15 @@ def golden_s0(tmp_path_factory):
 
 def test_port_raises_for_multi_process_runs(tmp_path, golden_s0,
                                             monkeypatch):
+    """Multi-process classify is ported (tests/test_torch_distributed.py
+    runs it): a multi-process run without the coordinator that its
+    process group needs raises, and WORLD_SIZE alone starts none."""
     _, q, db = golden_s0
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="coordinator"):
         main(["classify", q, db, str(tmp_path / "out"), "x", "--seq-mode",
-              "1", "--device", "cpu"])
+              "1", "--device", "cpu", "--num-processes", "2"])
+    assert not (tmp_path / "out").exists()
 
 
 def test_port_defaults_to_cuda_and_never_falls_back_to_cpu(
