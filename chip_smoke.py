@@ -119,23 +119,20 @@ Phases, one line each; any failure exits non-zero:
             equal the JAX package's on the CPU (constants below)
   sharded   the classify phase's DB and reads through the CLI over two
             processes on the one card (--num-processes 2 --db-shards 2
-            --dist-backend gloo: each rank builds half the table, the db
-            axis's all_gather goes through pinned host buffers): per rank
-            DB load s, shard rows, peak device GiB, reads/s, the gather's
-            MB and ms a batch and K1-K4's launches (K2 once a batch a
-            rank); the classifications, report and Krona file must equal
-            the classify phase's byte for byte
-  sharded_a2a  tools.sharded_step over the same two ranks and the
-            classify phase's searchable table (saved as .npy by the
-            kernels phase): the fused step's gather and all_to_all routes
-            on the first 8,192 reads, per route its ms, the collectives'
-            MB and ms, its counters; every read's line must be equal
-            between the routes and to the classify phase's file, and each
-            rank's device merge equal to the host merges
+            --dist-backend gloo: each rank builds half the table; with a
+            row's shards in two processes the fused step takes the
+            all_to_all route, each rank receiving every shard's matches
+            of its half of the row's reads through pinned host buffers,
+            tailing and writing them): per rank DB load s, shard rows,
+            peak device GiB, reads/s, the exchange's MB and ms a batch and
+            K1-K4's launches (K2 once a batch a rank); the
+            classifications, report and Krona file must equal the
+            classify phase's byte for byte
   sharded_mesh  dbbuild's updated DB and the 65,536 reads over four
             processes, a 2 x 2 (data, db) mesh on gloo, once on the fused
-            route and once with METABULI_TPU_DIST_FUSED=0 (the plain
-            route, the native host assign): the classifications' digest
+            (all_to_all) route and once with METABULI_TPU_DIST_FUSED=0
+            (the plain route: the db axis's all_gather, the native host
+            assign): the classifications' digest
             and classified count must equal the JAX package's (dbbuild's
             constants)
   nccl      the same with one process through the distributed path on
@@ -1214,6 +1211,7 @@ def rank_lines(phase, ranks) -> None:
     for s in ranks:
         n = max(1, s["gathers"])
         say(phase, rank=s["rank"], mesh=s["mesh"], backend=s["backend"],
+            route=s["route"],
             db_load_s=round(s["load_s"], 3), shard_rows=s["shard_rows"],
             peak_mem_gib=round(s.get("peak_mem_gib", 0.0), 3),
             reads_per_s=round(s["reads"] / s["classify_s"], 1),
@@ -1249,6 +1247,8 @@ def sharded_phase(tmp, fq, db) -> list:
     say("sharded", classified=ranks[0]["classified"], equal_classify=same,
         phase_s=round(time.perf_counter() - t0, 3))
     for s in ranks:
+        if s["route"] != "alltoall":
+            fail("sharded", f"rank {s['rank']}: the {s['route']} route")
         if min(s["launches"].get(k, 0) for k in MAIN_KERNELS) == 0:
             fail("sharded", f"rank {s['rank']}: a kernel never launched")
         if s["launches"]["search_scan"] != s["gathers"]:
@@ -1256,50 +1256,6 @@ def sharded_phase(tmp, fq, db) -> list:
     if ranks[0]["classified"] != CLASSIFIED or not all(same.values()):
         fail("sharded", "the files differ from the classify phase's")
     return [s["launches"] for s in ranks]
-
-
-def sharded_a2a_phase(tmp, fq, db, table, cap) -> None:
-    """Both routes of the sharded fused step on the first 8,192 reads over
-    two gloo ranks (see the module docstring)."""
-    t0 = time.perf_counter()
-    out = os.path.join(tmp, "a2a")
-    port = free_port()
-    spawn_ranks(tmp, "sharded_a2a", [[
-        "metabuli_tpu_torch.tools.sharded_step", db, fq, out, "--world", "2",
-        "--rank", str(i), "--coordinator", f"localhost:{port}",
-        "--db-shards", "2", "--backend", "gloo", "--device", "cuda",
-        "--batch-reads", "8192", "--table", table, "--cap", str(cap)]
-        for i in range(2)], timeout=300)
-    ranks = []
-    for i in range(2):
-        with open(f"{out}.rank{i}.json") as fh:
-            ranks.append(json.load(fh))
-    lines = {}
-    for r in ranks:
-        for route, v in r["routes"].items():
-            lines.setdefault(route, {}).update(
-                {int(q): ln for q, ln in v["lines"].items()})
-            say("sharded_a2a", rank=r["rank"], route=route,
-                reads=r["batch_reads"], shard_rows=r["shard_rows"],
-                shard_build_s=round(r["shard_load_s"], 3),
-                ms=round(v["ms"], 3), collectives=v["gathers"],
-                collective_mb=round(v["gather_bytes"] / 1e6, 3),
-                collective_ms=round(v["gather_ms"], 3),
-                overflowed=v["overflowed"],
-                n_matches=[c["n_matches"] for c in v["counts"]],
-                launches=v["launches"])
-    with open(os.path.join(tmp, "out", "smoke_classifications.tsv")) as fh:
-        smoke = [ln for ln in fh if not ln.startswith("#")][:8192]
-    got = {route: [v.get(q) for q in range(8192)]
-           for route, v in lines.items()}
-    agree = [r["merges_agree"] for r in ranks]
-    say("sharded_a2a", routes_equal=got["alltoall"] == got["gather"],
-        equal_classify=got["gather"] == smoke, merges_agree=agree,
-        phase_s=round(time.perf_counter() - t0, 3))
-    if got["alltoall"] != got["gather"] or got["gather"] != smoke:
-        fail("sharded_a2a", "the routes' lines differ")
-    if not all(agree):
-        fail("sharded_a2a", "a device merge differs from the host merges")
 
 
 def sharded_mesh_phase(tmp, fq) -> dict:
@@ -1447,11 +1403,6 @@ def main() -> int:
         say("kernels", db_load_s=round(clf.load_s, 3), cap=clf.cap,
             index_rows=clf.dev_index.n,
             resident_gib=round(resident / 2**30, 3))
-        # the searchable table for sharded_a2a's ranks (no second decode)
-        table, smoke_cap = os.path.join(tmp, "table"), clf.cap
-        np.save(table + ".values.npy", clf.index.values[:-1])
-        np.save(table + ".taxids.npy",
-                clf.index.taxids[:-1].astype(np.int32))
         metas, rows = next(clf._iter_batches(fq, None))
         timings = {}
         kernel_phase(clf, metas, rows, timings, k1_shapes=[
@@ -1536,11 +1487,8 @@ def main() -> int:
         grp_launches = grouping_phase(tmp, fq, dev)
         uni_launches = uniref_phase(tmp, dev, timings)
 
-        # ---- item 13: sharded, sharded_a2a, sharded_mesh, nccl
+        # ---- item 13: sharded, sharded_mesh, nccl
         rank_runs = {"sharded": sharded_phase(tmp, fq, db)}
-        sharded_a2a_phase(tmp, fq, db, table, smoke_cap)
-        for ext in (".values.npy", ".taxids.npy"):
-            os.remove(table + ext)
         mesh_runs = sharded_mesh_phase(tmp, fq)
         rank_runs.update({"sharded_mesh": mesh_runs["fused"],
                           "sharded_mesh_plain": mesh_runs["plain"],

@@ -3,24 +3,31 @@
 Counterpart of ``metabuli_tpu.parallel.dist_classify``: every process
 joins the process group, and all iterate the SAME sequence of global read
 batches of ``per_row * n_data`` reads. Each process runs its data row's
-reads against its db shard (``mesh.sharded_fused``: the gather route,
-the device taxonomer's tail on the merged columns; ``mesh.sharded_classify``
-and the native host assign for ``--reduced-aa 1`` or
-``METABULI_TPU_DIST_FUSED=0``), the row's db rank 0 finishes the row's
-reads on the host and writes them to a part file
-``.{job}_part{rank}.tsv``, and after a barrier process 0 merges the parts
-by the reads' global index into the classifications, the report and the
+reads against its db shard and writes the reads it owns to a part file
+``.{job}_part{rank}.tsv``; after a barrier process 0 merges the parts by
+the reads' global index into the classifications, the report and the
 Krona file.
+
+The fused route (the device taxonomer's tail on merged match columns,
+``mesh.sharded_fused``) is the all_to_all where a row's shards lie in
+several processes: each db rank receives every shard's matches of its
+range of the row's reads, tails and writes only those. Where one process
+holds the row (``--db-shards N`` alone, or one shard a row) it is the
+gather. ``--reduced-aa 1`` and ``METABULI_TPU_DIST_FUSED=0`` take the plain
+route (``mesh.sharded_classify``: the gather and the one sort), and the
+row's db rank 0 assigns the row's reads on the host.
 
 The batches run through the single-card classifier's depth-2 pipeline
 (``Classifier._run_batches``), each rank dispatching on its main thread
 (the db axis's collectives are there) while its worker finishes the batch
-before. Every stage is sized exactly, so no batch overflows and the
-reference package's first-batch size hints, its fused-overflow retry and
-the ``process_allgather`` that agrees on them have no counterpart: the
-only per-batch choices, a data row with no reads in the last batch, are
-the same on every rank of the row because every rank parses the same
-files.
+before. Choices the ranks must share are agreed by all_reduce, as the
+reference package's ``process_allgather`` agrees on its hints: the size of
+an automatic batch (``--batch-reads 0``), which each rank derives from its
+own free device memory, takes the smallest over every process before the
+first batch; an all_to_all whose segment outgrew its block (agreed over
+the db group before the exchange) runs the batch again at the row's
+longest segment on every rank of the row. Every stage is sized exactly,
+so the reference package's first-batch size hints have no counterpart.
 """
 
 from __future__ import annotations
@@ -36,12 +43,15 @@ from ..classify.pipeline import to_host_async
 from ..csrc import build
 from ..params import ClassifyParams
 from . import distributed as dist
-from .mesh import Mesh, sharded_classify, sharded_fused
+from .mesh import A2A_OVERFLOW, Mesh, sharded_classify, sharded_fused
 
 
 class ShardedClassifier(Classifier):
     """The classifier of one rank of a (data, db) mesh: its db shards on
     its device, its data row's reads of each global batch."""
+
+    # the all_to_all route's block rows (0: its budget rule)
+    a2a_budget = 0
 
     def __init__(self, db_dir: str, params: ClassifyParams, mesh: Mesh):
         self.mesh = mesh
@@ -54,8 +64,13 @@ class ShardedClassifier(Classifier):
         params.device_tax = int(
             os.environ.get("METABULI_TPU_DIST_FUSED", "1") != "0")
         super().__init__(db_dir, params, device=mesh.device)
+        # every rank must cut the same global batches
+        params.batch_reads, self.batch_bases = mesh.agree(
+            [params.batch_reads, self.batch_bases], "min", world=True)
         self.per_row = max(1, params.batch_reads // mesh.n_data)
         params.batch_reads = self.per_row * mesh.n_data
+        self.route = ("plain" if self.mode != "device" else "alltoall"
+                      if mesh.grouped and mesh.n_db > 1 else "gather")
         self._seen = 0  # reads of the batches dispatched so far
 
     def _build_index(self, values: np.ndarray, taxids: np.ndarray):
@@ -63,6 +78,16 @@ class ShardedClassifier(Classifier):
             values, taxids, self.mesh, self.par.kmer_format,
             bool(self.par.reduced_aa))
         return shards
+
+    def _own(self, n: int) -> range:
+        """The reads of an ``n``-read row this process writes: its range
+        of them on the all_to_all route, all of them on the row's db rank
+        0 otherwise."""
+        if self.route == "alltoall":
+            stride = -(-n // self.mesh.n_db)
+            j = self.mesh.rank % self.mesh.n_db
+            return range(min(n, j * stride), min(n, (j + 1) * stride))
+        return range(n) if self.mesh.writer else range(0)
 
     def _dispatch(self, metas, rows, plain: bool = False) -> Job:
         """This data row's reads of a global batch through the sharded
@@ -75,9 +100,8 @@ class ShardedClassifier(Classifier):
         first += lo
         if not metas:
             return Job([], None, {}, np.zeros(0, np.int32), [], first)
-        job = super()._dispatch(metas, rows, plain=plain)
-        return job._replace(first=first,
-                            metas=job.metas if self.mesh.writer else [])
+        return super()._dispatch(metas, rows, plain=plain)._replace(
+            first=first)
 
     def _device_stages(self, d_codes, d_lens, d_pos, d_qid, read_lens,
                        plain: bool):
@@ -85,20 +109,28 @@ class ShardedClassifier(Classifier):
                     smer_len=self.par.smer_len, plain=plain, timer=self.timer)
         args = (self.mesh, self.dev_index, self.d_species)
         reads = (d_codes, d_lens, d_pos, d_qid)
-        if self.mode == "device":
-            dtx = self.device_taxonomer
-            [(handle, counts)] = sharded_fused(*args, dtx, read_lens, *reads,
-                                               route="gather", **core)
-            return (dtx.start_drain(handle) if self.mesh.writer
-                    else None), counts
-        m, counts = sharded_classify(*args, *reads, **core)
-        return (to_host_async(m) if self.mesh.writer else None), counts
+        own = self._own(len(read_lens))
+        if self.route == "plain":
+            m, counts = sharded_classify(*args, *reads, **core)
+            return (to_host_async(m) if own else None), counts
+        dtx, budget = self.device_taxonomer, self.a2a_budget
+        while True:
+            [(handle, counts)] = sharded_fused(
+                *args, dtx, read_lens, *reads, route=self.route,
+                a2a_budget=budget, **core)
+            if not counts.get("tax_overflow", 0) & A2A_OVERFLOW:
+                break
+            budget = counts["a2a_segment"]
+        return (dtx.start_drain(handle) if own else None), counts
 
     def _finish_batch(self, job: Job):
-        if job.host is None:  # not this rank's reads to write
+        """The batch's results of the reads this process writes."""
+        if job.host is None:
             t = time.perf_counter()
             return [], (t, t, t, 0.0)
-        return super()._finish_batch(job)
+        own = self._own(len(job.metas))
+        results, clock = super()._finish_batch(job)
+        return results[own.start:own.stop], clock
 
     def classify_file(self, q1: str, q2: str | None, out_dir: str,
                       job_id: str, resume: bool = False) -> dict:
@@ -110,7 +142,8 @@ class ShardedClassifier(Classifier):
         row = self.reporter.classification_row
 
         def emit(job, results):
-            for i, (meta, rc) in enumerate(zip(job.metas, results)):
+            for i, rc in zip(self._own(len(job.metas)), results):
+                meta = job.metas[i]
                 fh.write(f"{job.first + i}\t"
                          + row(meta.name, rc, meta.read_len))
 
@@ -122,6 +155,7 @@ class ShardedClassifier(Classifier):
         summary = {
             **self.stats, "reads": self._seen, "rank": mesh.rank,
             "mesh": [mesh.n_data, mesh.n_db], "backend": mesh.backend,
+            "route": self.route,
             "shard_rows": self.dev_index.rows,
             "load_s": self.load_s, "classify_s": classify_s,
             "stage_ms": self.timer.ms, **run, **mesh.stats,
@@ -188,31 +222,3 @@ def classify_distributed(
         return clf.classify_file(q1, q2, out_dir, job_id)
     finally:
         dist.shutdown()
-
-
-def _rows_to_matches(data: np.ndarray, species_table: np.ndarray) -> dict:
-    """Transfer-packed rows [5, M] -> sorted match dict (see
-    pipeline.matches_to_host; padding rows dropped, reference order): the
-    host version of the merge, the reference package's function line for
-    line."""
-    valid = data[0] != np.int32(2147483647)
-    data = data[:, valid]
-    packed = data[4]
-    out = {
-        "qid": data[0],
-        "pos": data[1],
-        "dna": data[2],
-        "taxid": data[3],
-        "frame": packed & 7,
-        "hamming": (packed >> 3) & 0xFF,
-        "h16": (packed >> 11) & 0xFFFF,
-    }
-    out["species"] = species_table[out["taxid"]].astype(np.int32)
-    order = np.lexsort((
-        out["dna"].view(np.uint32) if out["dna"].size else out["dna"],
-        out["hamming"], out["pos"], out["frame"], out["species"], out["qid"],
-    ))
-    for k in ("qid", "species", "frame", "pos", "hamming", "dna", "taxid",
-              "h16"):
-        out[k] = np.ascontiguousarray(out[k][order])
-    return out

@@ -19,7 +19,7 @@ them with the match core's one stable sort, as a chunked index's chunks
 are merged (``pipeline.sort_matches``).
 
 A mesh with a process group holds one (data, db) cell a process; its
-collectives (``Mesh.gather_db``, ``all_to_all_db``, ``agree_max``) take device
+collectives (``Mesh.gather_db``, ``all_to_all_db``, ``agree``) take device
 tensors on NCCL and go through pinned host buffers on gloo with a card
 (two ranks on one card, which NCCL refuses). A one-process mesh
 (``--db-shards N`` alone) holds all N shards of one data row on its one
@@ -165,18 +165,22 @@ class Mesh:
         self._clock(t0, recv.numel() * recv.element_size())
         return [self._in(recv)]
 
-    def agree_max(self, value: int) -> int:
-        """``value``'s largest over the db group: a choice every rank of
-        the data row must share. A one-process mesh holds the whole group:
-        the value itself."""
+    def agree(self, values: list[int], op: str = "max",
+              world: bool = False) -> list[int]:
+        """``values`` reduced elementwise (``op`` "max" or "min") over the
+        db group, or over every process (``world``): choices the ranks
+        must share. A one-process mesh holds the whole group: the values
+        themselves."""
         if not self.grouped:
-            return int(value)
+            return [int(v) for v in values]
         import torch.distributed as dist
 
-        t = torch.tensor([value], dtype=torch.int64,
+        t = torch.tensor(values, dtype=torch.int64,
                          device=self._comm_device())
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.db_group)
-        return int(t.item())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.MIN,
+                        group=None if world else self.db_group)
+        return [int(v) for v in t.tolist()]
 
     def barrier(self):
         if not self.grouped:
@@ -272,7 +276,8 @@ def sharded_fused(mesh: Mesh, shards: Shards, t2s, dtx, read_lens,
 
     route="gather": the db axis gathers every shard's columns and each db
     rank merges them all and runs the tail on the row's reads: one output,
-    the same on every db rank of the row.
+    the same on every db rank of the row. Where one process holds the row
+    (a one-process mesh, or one shard a row), the classifier's route.
 
     route="alltoall": the row's reads (local qids ``0..len(read_lens)``)
     are cut into ``n_db`` ranges of ``stride`` reads; each shard's
@@ -280,8 +285,9 @@ def sharded_fused(mesh: Mesh, shards: Shards, t2s, dtx, read_lens,
     ``a2a_budget`` rows (0: the rule ``max(1024, 2 * row matches //
     n_db)``), one all_to_all hands each db rank every shard's block of its
     range, and each merges and tails only those: one output per local db
-    rank, results only for its range. A segment longer than the budget is
-    cut; every rank of the row then sets ``A2A_OVERFLOW`` in
+    rank, results only for its range. Where the row's shards lie in
+    several processes, the classifier's route: no rank tails reads it
+    does not write. A segment longer than the budget is cut; every rank of the row then sets ``A2A_OVERFLOW`` in
     ``counts["tax_overflow"]`` and carries the row's longest segment in
     ``counts["a2a_segment"]``, the budget a run again needs."""
     mark = timer.mark if timer is not None else (lambda name: None)
@@ -319,7 +325,7 @@ def sharded_fused(mesh: Mesh, shards: Shards, t2s, dtx, read_lens,
             k = min(seg, budget)
             blocks[j, :k] = rows[cut[j]:cut[j] + k]
         outbound.append(blocks)
-    longest = mesh.agree_max(longest)
+    (longest,) = mesh.agree([longest])
     inbound = mesh.all_to_all_db(outbound)
     mark("gather")
     out = []
@@ -335,50 +341,3 @@ def sharded_fused(mesh: Mesh, shards: Shards, t2s, dtx, read_lens,
             "tax_overflow": A2A_OVERFLOW if longest > budget else 0,
             "a2a_segment": longest}))
     return out
-
-
-# ------------------------------------------------------- host functions
-def merge_shard_matches(stacked, n_reads: int, species_table=None):
-    """Merge per-(data, db) match tensors into host match arrays: the
-    host version of the db axis's merge (the reference package's
-    function, line for line).
-
-    ``stacked`` = (data [n_data, n_db, 5, M], counts [n_data, n_db, 3]) in
-    the transfer-packed layout (qid, pos, dna, taxid, packed). Padding
-    rows (qid == INT32_MAX) are dropped; rows re-sorted in the reference
-    match order.
-    """
-    data, counts = (np.asarray(x) for x in stacked)
-    flat = data.transpose(2, 0, 1, 3).reshape(5, -1)
-    valid = flat[0] != np.int32(2147483647)
-    flat = flat[:, valid]
-    packed = flat[4]
-    out = {
-        "qid": flat[0],
-        "pos": flat[1],
-        "dna": flat[2],
-        "taxid": flat[3],
-        "frame": packed & 7,
-        "hamming": (packed >> 3) & 0xFF,
-        "h16": (packed >> 11) & 0xFFFF,
-    }
-    if species_table is not None:
-        out["species"] = np.asarray(species_table, np.int32)[out["taxid"]]
-    else:
-        out["species"] = np.zeros(len(flat[0]), np.int32)
-    order = np.lexsort(
-        (out["dna"].view(np.uint32), out["hamming"], out["pos"], out["frame"],
-         out["species"], out["qid"])
-    )
-    for k in ("qid", "species", "frame", "pos", "hamming", "dna", "taxid", "h16"):
-        out[k] = out[k][order]
-    out["n_matches"] = int(counts[:, :, 0].sum())
-    out["n_over_cap"] = int(counts[:, :, 1].sum())
-    return out
-
-
-def packed_rows(m: MatchColumns) -> torch.Tensor:
-    """Match columns in the transfer-packed layout [5, M] int32 (qid, pos,
-    dna, taxid, packed) that ``merge_shard_matches`` takes."""
-    return torch.stack([m.qid, m.pos, m.dna, m.taxid, m.packed]).to(
-        torch.int32)

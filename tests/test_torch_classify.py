@@ -147,6 +147,11 @@ def test_port_raises_for_multi_process_runs(tmp_path, golden_s0,
         main(["classify", q, db, str(tmp_path / "out"), "x", "--seq-mode",
               "1", "--device", "cpu", "--num-processes", "2"])
     assert not (tmp_path / "out").exists()
+    assert main(["classify", q, db, str(tmp_path / "one"), "x",
+                 "--seq-mode", "1", "--device", "cpu",
+                 "--verbosity", "0"]) == 0
+    assert not torch.distributed.is_initialized()
+    assert not list((tmp_path / "one").glob(".x_part*"))
 
 
 def test_port_defaults_to_cuda_and_never_falls_back_to_cpu(

@@ -8,6 +8,7 @@ whose rank dies fails instead of hanging. Tolerance is zero. The ranks
 are processes that import only the port, each killed at the test's
 timeout."""
 
+import json
 import os
 import pathlib
 import socket
@@ -65,11 +66,12 @@ def spawn_ranks(argvs, timeout=120, env=None):
     return [(p.wait(), p.stdout.read().decode()) for p in procs]
 
 
-def cli_ranks(files, db, out, world, shards, flags, env=None, timeout=120):
-    """``classify`` over ``world`` processes with ``--db-shards shards``;
-    asserts every rank exited 0."""
+def cli_ranks(files, db, out, world, shards, flags, env=None, timeout=120,
+              module="metabuli_tpu_torch.cli"):
+    """``classify`` over ``world`` processes with ``--db-shards shards``
+    (through ``module``'s command line); asserts every rank exited 0."""
     port = free_port()
-    res = spawn_ranks([["metabuli_tpu_torch.cli", "classify", *files, db,
+    res = spawn_ranks([[module, "classify", *files, db,
                         out, "j", *flags, "--device", "cpu",
                         "--num-processes", str(world), "--process-id",
                         str(i), "--coordinator", f"localhost:{port}",
@@ -167,6 +169,40 @@ def test_multi_process_cli_equals_jax(jax_runs, world_name, world, shards,
     parts = sorted(p.name for p in pathlib.Path(out).iterdir()
                    if p.name.startswith(".j_part"))
     assert parts == [f".j_part{i}.tsv" for i in range(world)]
+
+
+def _batch_free(flags):
+    i = flags.index("--batch-reads")
+    return flags[:i] + flags[i + 2:]
+
+
+def test_ranks_agree_on_automatic_batches(jax_runs, tmp_path):
+    """``--batch-reads 0`` with ranks that size their batches differently
+    (rank 1 at half rank 0's reads and bases, as cards with different
+    free memory would; the bases decide where a batch ends): the ranks
+    agree on the smallest, and the files equal JAX's."""
+    root, files, db, flags, want = jax_runs("se")
+    out = str(tmp_path / "out")
+    cli_ranks(files, db, out, 2, 2, [*_batch_free(flags), "--batch-reads",
+                                     "0", "--skew-batch", "64,1300"],
+              module="tests.helpers.torch_dist_rank")
+    assert written(out) == want
+
+
+def test_alltoall_overflow_runs_the_batch_again(jax_runs, tmp_path):
+    """All_to_all blocks of one row: every batch's segments outgrow them,
+    every rank of the row runs the batch again at the longest segment,
+    and the files equal JAX's."""
+    root, files, db, flags, want = jax_runs("se")
+    out = str(tmp_path / "out")
+    res = cli_ranks(files, db, out, 4, 2, [*flags, "--a2a-budget", "1"],
+                    module="tests.helpers.torch_dist_rank")
+    assert written(out) == want
+    summaries = [json.loads([ln for ln in log.splitlines()
+                             if ln.startswith("{")][-1]) for _, log in res]
+    assert {s["route"] for s in summaries} == {"alltoall"}
+    # an exchange a try; a rank has at most 3 batches of reads
+    assert max(s["gathers"] for s in summaries) > 3
 
 
 @pytest.mark.parametrize("shards", [2, 3])

@@ -55,8 +55,7 @@ def test_port_cli_imports_neither_jax_nor_reference_package():
             "metabuli_tpu_torch.uniref.classifier, "
             "metabuli_tpu_torch.parallel.mesh, "
             "metabuli_tpu_torch.parallel.distributed, "
-            "metabuli_tpu_torch.parallel.dist_classify, "
-            "metabuli_tpu_torch.tools.sharded_step; "
+            "metabuli_tpu_torch.parallel.dist_classify; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'metabuli_tpu.')) or m == 'metabuli_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -928,11 +928,11 @@ def test_k12_empty_batches():
 
 
 def test_two_rank_gloo_step_matches_single_card(tmp_path):
-    """``tools.sharded_step`` over two gloo ranks on this card, both
-    routes of the sharded fused step (K1-K4 per rank, the db axis's
-    collectives through pinned host buffers): every read's line equals
-    the single-card fused path's, and each rank's device merge the host
-    merges."""
+    """``classify`` over two gloo ranks on this card, a db shard each (the
+    all_to_all route of the sharded fused step: K1-K4 per rank, the db
+    axis's collectives through pinned host buffers): the classifications,
+    report and Krona file equal the one-card run's, and every rank
+    launched K1-K4."""
     import json
     import pathlib
     import socket
@@ -940,12 +940,12 @@ def test_two_rank_gloo_step_matches_single_card(tmp_path):
     import sys
     import time
 
-    from metabuli_tpu_torch.classify.device_taxonomer import DeviceTaxonomer
-    from metabuli_tpu_torch.classify.taxonomer import TaxonomerParams
+    from metabuli_tpu_torch.cli import main
+    from metabuli_tpu_torch.db.formats import DbParameters
+    from metabuli_tpu_torch.db.index import MetamerIndex
     from metabuli_tpu_torch.db.taxonomy import Taxonomy
-    from metabuli_tpu_torch.io.report import Reporter
 
-    tdir = tmp_path / "db" / "taxonomy"
+    tdir = tmp_path / "taxonomy"
     tdir.mkdir(parents=True)
     nodes = [(1, 1, "no rank"), (2, 1, "genus")] + [
         (t, 2, "species") for t in range(3, 11)]
@@ -965,48 +965,34 @@ def test_two_rank_gloo_step_matches_single_card(tmp_path):
     for g in range(8):
         v = np.unique(mm.value[g][mm.valid[g]].numpy().view(np.uint64))
         vals.append(v)
-        taxs.append(np.full(len(v), 3 + g, np.int32))
+        taxs.append(np.full(len(v), 3 + g, np.uint32))
     values, taxids = np.concatenate(vals), np.concatenate(taxs)
     o = np.lexsort((taxids, values))
     values, taxids = values[o], taxids[o]
     aa = values >> np.uint64(24)
     cap = int(np.diff(np.r_[-1, np.nonzero(aa[1:] != aa[:-1])[0],
                             len(aa) - 1]).max())
-    reads = [genomes[i % 8][i * 40:i * 40 + 150] for i in range(64)]
-    names = [f"r{i}" for i in range(64)]
-    rl = np.full(64, 147, np.int32)
-
-    dev = torch.device("cuda")
-    dtx = DeviceTaxonomer(TaxonomerParams(seq_mode=1), tax, dev)
-    rc, rlen = encode_seqs_padded(reads)
-    batch = [torch.from_numpy(a).to(dev) for a in (
-        rc, rlen, np.zeros(64, np.int32), np.arange(64, dtype=np.int32))]
-    handle, _ = dtx.dispatch(build_dev_index(values, taxids, device=dev),
-                             torch.as_tensor(tax.species_of.astype(np.int32),
-                                             device=dev),
-                             *batch, rl, cap=cap, syncmer=False, smer_len=5)
-    rep = Reporter(tax)
-    single = [rep.classification_row(n, r, 147) for n, r in zip(
-        names, dtx.drain(dtx.start_drain(handle), rl, 64))]
-
-    prefix = str(tmp_path / "table")
-    np.save(prefix + ".values.npy", values)
-    np.save(prefix + ".taxids.npy", taxids)
+    db = str(tmp_path / "db")
+    MetamerIndex(values, taxids, tax, DbParameters(), cap).save(db)
     fa = tmp_path / "reads.fna"
-    fa.write_text("".join(f">{n}\n{r.decode()}\n"
-                          for n, r in zip(names, reads)))
+    fa.write_text("".join(
+        f">r{i}\n{genomes[i % 8][i * 40:i * 40 + 150].decode()}\n"
+        for i in range(64)))
+    flags = ["--seq-mode", "1", "--batch-reads", "32"]
+    assert main(["classify", str(fa), db, str(tmp_path / "one"), "j",
+                 *flags, "--verbosity", "0"]) == 0
+
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    out = str(tmp_path / "step")
     root = pathlib.Path(__file__).resolve().parent.parent
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "metabuli_tpu_torch.tools.sharded_step",
-         str(tmp_path / "db"), str(fa), out, "--world", "2", "--rank",
-         str(i), "--coordinator", f"localhost:{port}", "--db-shards", "2",
-         "--backend", "gloo", "--device", "cuda", "--batch-reads", "64",
-         "--table", prefix, "--cap", str(cap)], cwd=root,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for i in range(2)]
+        [sys.executable, "-m", "metabuli_tpu_torch.cli", "classify",
+         str(fa), db, str(tmp_path / "two"), "j", *flags,
+         "--num-processes", "2", "--process-id", str(i), "--coordinator",
+         f"localhost:{port}", "--db-shards", "2", "--dist-backend", "gloo"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for i in range(2)]
     end = time.monotonic() + 300
     while any(p.poll() is None for p in procs) and time.monotonic() < end \
             and all(p.poll() in (None, 0) for p in procs):
@@ -1014,17 +1000,16 @@ def test_two_rank_gloo_step_matches_single_card(tmp_path):
     for p in procs:
         if p.poll() is None:
             p.kill()
+    logs = [p.stdout.read().decode() for p in procs]
     for i, p in enumerate(procs):
-        assert p.wait() == 0, f"rank {i}:\n{p.stdout.read().decode()[-3000:]}"
-    ranks = [json.loads(pathlib.Path(f"{out}.rank{i}.json").read_text())
-             for i in range(2)]
-    assert all(r["merges_agree"] and r["backend"] == "gloo" for r in ranks)
-    for route in ("gather", "alltoall"):
-        lines = {int(q): ln for r in ranks
-                 for q, ln in r["routes"][route]["lines"].items()}
-        assert [lines[q] for q in range(64)] == single, route
-        for r in ranks:
-            launched = r["routes"][route]["launches"]
-            assert min(launched.get(k, 0) for k in (
-                "extract_metamers", "search_scan", "chain_matches",
-                "combine_paths")) > 0, (route, launched)
+        assert p.wait() == 0, f"rank {i}:\n{logs[i][-3000:]}"
+    for name in ("j_classifications.tsv", "j_report.tsv", "j_krona.html"):
+        assert (tmp_path / "two" / name).read_bytes() == (
+            tmp_path / "one" / name).read_bytes(), name
+    for log in logs:
+        s = json.loads([ln for ln in log.splitlines()
+                        if ln.startswith("{")][-1])
+        assert (s["backend"], s["route"]) == ("gloo", "alltoall")
+        assert min(s["launches"].get(k, 0) for k in (
+            "extract_metamers", "search_scan", "chain_matches",
+            "combine_paths")) > 0, s["launches"]

@@ -1,14 +1,13 @@
 """The port's sharded index and sharded steps (``parallel.mesh``) against
 the JAX package's ``parallel.mesh`` on the same seeded inputs, with
 tolerance zero: the AA-aligned shards' bounds and tables (2, 3 and 4
-shards; format 2, format 1, reduced), the host merges, the fused step's
-gather and all_to_all routes on a one-process mesh and spawned over gloo
-worlds of 2 and 4 processes (per read equal to the port's single fused
-path and to JAX's ``build_sharded_fused`` on the CPU mesh, the world of
-tests/test_sharded_fused.py), the all_to_all budget's overflow bit, and
-the plain route, reduced alphabet included."""
+shards; format 2, format 1, reduced), the fused step's gather and
+all_to_all routes on a one-process mesh and, through the CLI, spawned over
+gloo worlds of 2 and 4 processes (per read equal to the port's single
+fused path and to JAX's ``build_sharded_fused`` on the CPU mesh, the
+world of tests/test_sharded_fused.py), the all_to_all budget's overflow
+bit, and the plain route, reduced alphabet included."""
 
-import json
 import pathlib
 
 import jax
@@ -34,10 +33,11 @@ from metabuli_tpu_torch.classify.pipeline import (FIELDS, build_dev_index,
                                                   classify_core,
                                                   matches_to_host)
 from metabuli_tpu_torch.classify.taxonomer import TaxonomerParams
+from metabuli_tpu_torch.db.formats import DbParameters
+from metabuli_tpu_torch.db.index import MetamerIndex
 from metabuli_tpu_torch.db.taxonomy import Taxonomy
 from metabuli_tpu_torch.io.report import Reporter
 from metabuli_tpu_torch.parallel import mesh
-from metabuli_tpu_torch.parallel.dist_classify import _rows_to_matches
 from test_torch_distributed import free_port, spawn_ranks
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
@@ -132,33 +132,6 @@ def test_shard_tables_equal_jax(kind, n_shards):
             assert np.array_equal(td, jdb[3][i][:b - a])
             assert np.array_equal(ix.d48.numpy().view(np.uint64),
                                   jdb[4][i][:b - a])
-
-
-@pytest.mark.parametrize("species", [False, True])
-def test_host_merges_equal_jax(species):
-    """``merge_shard_matches`` and ``_rows_to_matches`` on stacked packed
-    columns with padding rows: every field and counter equals JAX's."""
-    rng = np.random.default_rng(17)
-    data = np.stack([rng.integers(0, 12, (2, 3, 40)),
-                     rng.integers(0, 300, (2, 3, 40)),
-                     rng.integers(-2**31, 2**31, (2, 3, 40)),
-                     rng.integers(0, 32, (2, 3, 40)),
-                     rng.integers(0, 2**27, (2, 3, 40))], 2).astype(np.int32)
-    data[:, :, 0, 30:] = np.int32(2**31 - 1)
-    counts = rng.integers(0, 50, (2, 3, 3)).astype(np.int32)
-    t2s = (np.arange(32, dtype=np.int32) % 5) + 1
-    table = t2s if species else None
-    got = mesh.merge_shard_matches((data, counts), 24, table)
-    want = jmesh.merge_shard_matches((data, counts), 24, table)
-    assert got.keys() == want.keys()
-    for k in want:
-        assert np.array_equal(got[k], want[k]), k
-    flat = data[1].transpose(1, 0, 2).reshape(5, -1)
-    got, want = _rows_to_matches(flat, t2s), jdist._rows_to_matches(flat,
-                                                                    t2s)
-    assert got.keys() == want.keys()
-    for k in want:
-        assert np.array_equal(got[k], want[k]), k
 
 
 # ------------------------------------------------------------ fused step
@@ -350,48 +323,54 @@ def jax_fused_lines(fused_world):
     return out
 
 
+@pytest.mark.parametrize("route", ["gather", "alltoall"])
+def test_one_process_fused_equals_jax(fused_world, jax_fused_lines, route):
+    """A one-process mesh of 2 shards, all 32 reads in one row: every
+    read's line equals JAX's sharded fused step's on the route."""
+    w = fused_world
+    m = mesh.Mesh(1, 2, CPU)
+    _, shards = mesh.shard_index_aa_aligned(w["values"], w["taxids"], 2)
+    outs = mesh.sharded_fused(m, shards, w["t2s"], w["dtx"], w["rl"],
+                              *w["batch"], cap=w["cap"], route=route)
+    assert _lines(w, m, outs, route) == jax_fused_lines[route]
+
+
 @pytest.mark.parametrize("world", [2, 4], ids=["2x1", "2x2"])
 def test_spawned_fused_equals_single_and_jax(fused_world, jax_fused_lines,
                                              world, tmp_path):
-    """``tools.sharded_step`` over a gloo world (2 processes: 1 x 2; 4: a
-    2 x 2 mesh): both routes' lines equal the port's single fused path
-    and JAX's sharded fused step per read, and every rank's device merge
-    equals the host merges."""
+    """``classify`` over a gloo world of 2 shards a row (2 processes: 1 x
+    2; 4: a 2 x 2 mesh), which takes the all_to_all route: every read's
+    line equals the port's single fused path and JAX's sharded fused step
+    on both routes, and every rank writes its range of its row's reads."""
     w = fused_world
-    prefix = str(tmp_path / "table")
-    np.save(prefix + ".values.npy", w["values"])
-    np.save(prefix + ".taxids.npy", w["taxids"])
+    db = tmp_path / "db"
+    # the searchable table leaves out the DB's last row: a sentinel
+    values = np.r_[w["values"], np.uint64(2**64 - 1)]
+    taxids = np.r_[w["taxids"], w["taxids"][-1]].astype(np.uint32)
+    MetamerIndex(values, taxids, w["tax"], DbParameters(),
+                 w["cap"]).save(str(db))
     reads = tmp_path / "reads.fna"
     reads.write_text("".join(f">{n}\n{r.decode()}\n"
                              for n, r in zip(w["names"], w["reads"])))
-    out = str(tmp_path / "step")
+    out = tmp_path / "out"
     port = free_port()
-    res = spawn_ranks([["metabuli_tpu_torch.tools.sharded_step",
-                        str(w["dir"]), str(reads), out, "--world",
-                        str(world), "--rank", str(i), "--coordinator",
-                        f"localhost:{port}", "--db-shards", "2",
-                        "--backend", "gloo", "--device", "cpu",
-                        "--batch-reads", "32", "--table", prefix,
-                        "--cap", str(w["cap"])] for i in range(world)])
+    res = spawn_ranks([["metabuli_tpu_torch.cli", "classify", str(reads),
+                        str(db), str(out), "j", "--seq-mode", "1",
+                        "--batch-reads", "32", "--device", "cpu",
+                        "--num-processes", str(world), "--process-id",
+                        str(i), "--coordinator", f"localhost:{port}",
+                        "--db-shards", "2"] for i in range(world)])
     for i, (rc, log) in enumerate(res):
         assert rc == 0, f"rank {i} exited {rc}:\n{log[-3000:]}"
-    ranks = [json.loads(pathlib.Path(f"{out}.rank{i}.json").read_text())
-             for i in range(world)]
-    assert all(r["merges_agree"] for r in ranks)
-    assert {r["mesh"][0] for r in ranks} == {world // 2}
-    for route in ("gather", "alltoall"):
-        lines = {}
-        for r in ranks:
-            for q, line in r["routes"][route]["lines"].items():
-                assert int(q) not in lines
-                lines[int(q)] = line
-        got = [lines[q] for q in range(32)]
-        assert got == w["single"], route
-        assert got == jax_fused_lines[route], route
-    gathered = [r["routes"]["gather"] for r in ranks if r["rank"] % 2 == 0]
-    assert sum(g["counts"][0]["n_matches"] for g in gathered) == \
-        w["counts"]["n_matches"]
-    assert all(g["gathers"] == 1 and g["gather_bytes"] > 0 for g in gathered)
+    got = [ln for ln in (out / "j_classifications.tsv").read_text()
+           .splitlines(keepends=True) if not ln.startswith("#")]
+    assert got == w["single"]
+    assert got == jax_fused_lines["gather"] == jax_fused_lines["alltoall"]
+    per_rank = 32 // world
+    for i in range(world):
+        part = (out / f".j_part{i}.tsv").read_text().splitlines()
+        assert [int(ln.split("\t")[0]) for ln in part] == list(
+            range(i * per_rank, (i + 1) * per_rank))
 
 
 # ----------------------------------------------------------- plain route
