@@ -74,11 +74,16 @@ Phases, one line each; any failure exits non-zero:
             the defaults (K1's reduced variant on the card), then K1
             reduced and K11 (K2's reduced variant) against their plain
             versions on the first 8,192 smoke reads and the reduced
-            index (as in kernels), then ``classify`` of the 65,536 reads
-            against it (the host taxonomer, as the JAX package takes for
-            reduced DBs): the DB, gene-block and classifications digests
-            and the classified count must equal the JAX package's on the
-            CPU (constants below), K1 and K11 launched
+            index (as in kernels), with the reduced index's device bytes
+            (bucket records and codon column against the prefix layout
+            they replaced, also at PREFIX_BITS), its buckets' group
+            counts and, beside K11's bound, the 32-byte sectors a query
+            slot touches in either layout, then ``classify`` of the
+            65,536 reads against it (the host taxonomer, as the JAX
+            package takes for reduced DBs) with its peak device memory:
+            the DB, gene-block and classifications digests and the
+            classified count must equal the JAX package's on the CPU
+            (constants below), K1 and K11 launched
   chunked   the classify phase's DB and reads through the CLI with
             --max-ram 2 (2^28 rows x 28 B = 7 GiB: 4 AA-aligned chunks,
             each built once on the card, kept in pinned host memory and
@@ -257,7 +262,8 @@ KERNEL_FUNCTIONS = {"extract_metamers": ["extract_kernel"],
                     "search_scan_reduced": ["count_kernel", "write_kernel"],
                     "extract_metamers_f1": ["extract_kernel"],
                     "extract_aa_kmers": ["aa_kmers_kernel"],
-                    "extract_aa_kmers_dna": ["aa_kmers_dna_kernel"]}
+                    # 150 bp reads: the warp kernel alone
+                    "extract_aa_kmers_dna": ["aa_kmers_dna_warp_kernel"]}
 
 KERNELS = [
     # name, source, the XLA block it replaces
@@ -398,6 +404,61 @@ def scan_cost(idx, q, W, cap, phase, table_bytes=8):
     per_slot = 9 if q[2] is None else 17
     return lambda c: (per_slot * q[0].numel() + 12 * n_valid + 8 * n_hit
                       + table_bytes * n_window + 12 * c.row.numel())
+
+
+def reduced_layout(idx, q, cap, phase) -> None:
+    """The reduced index's device bytes in its layout (bucket records,
+    codon column) against the prefix layout it replaced, also at
+    PREFIX_BITS; its buckets' group counts; and, as a note beside
+    scan_cost's bound, the 32-byte sectors a query slot touches in either
+    layout, counted from the batch: a record (or prefix[bucket], with
+    prefix[bucket + 1] in its sector), a grest sector per lower-bound
+    step, gstart and gend where that search finds the group, and the
+    window's rows (tword at 4 B a row, or taxdna at 8)."""
+    import torch
+
+    from metabuli_tpu_torch.classify import pipeline
+
+    pb, n_rec = idx.prefix_bits, idx.brec.shape[0]
+    rec_b = idx.brec.numel() * 4
+    word_b = idx.tword.numel() * 4
+    before = idx.nbytes - rec_b - word_b + 4 * n_rec
+    most = 1 << pipeline.PREFIX_BITS
+    prefix = idx.bucket_prefix().to(torch.int64)
+    counts = prefix[1:] - prefix[:-1]
+    full = int((counts > 0).sum())
+    say(phase, prefix_bits=pb, index_bytes=idx.nbytes,
+        index_bytes_prefix_layout=before, records_bytes=rec_b,
+        codon_column_bytes=word_b, prefix_bytes_replaced=4 * n_rec,
+        records_bytes_at_prefix_bits_26=16 * (most + 1),
+        prefix_bytes_at_prefix_bits_26=4 * (most + 1),
+        buckets=counts.numel(), empty_buckets=counts.numel() - full,
+        multi_group_buckets=int((counts > 1).sum()),
+        multi_group_share=round(float((counts > 1).sum()) / counts.numel(),
+                                4),
+        multi_group_share_of_filled=round(
+            float((counts > 1).sum()) / max(full, 1), 4))
+    value, valid = q[0], q[1]
+    rb = 32 - pb
+    pi = pipeline.aa_permute(pipeline.aa_key(value, True), True)
+    rest, bucket = pi & ((1 << rb) - 1), pi >> rb
+    rec = idx.brec[bucket].to(torch.int64)
+    x = rec[:, 0] & 0xFFFFFFFF
+    rest0, n_b = x & ((1 << rb) - 1), counts[bucket]
+    steps = lambda n: torch.ceil(torch.log2(n.double() + 1)).to(torch.int64)
+    gs, ge, hit = pipeline._search_groups(idx, value, valid)
+    length = torch.minimum(ge - gs, torch.full_like(gs, cap))
+    rows = lambda b: torch.where(
+        length > 0, (b * (gs + length) - 1) // 32 - (b * gs) // 32 + 1, 0)
+    later = valid & (n_b > 1) & (rest > rest0)
+    new = (valid.long() + torch.where(later, steps(n_b - 1), 0)
+           + 2 * (later & hit).long() + rows(4))
+    old = (valid.long() + torch.where(valid & (n_b > 0), steps(n_b), 0)
+           + 2 * hit.long() + rows(8))
+    n = max(int(value.numel()), 1)
+    say(phase, sectors_per_slot_prefix_layout=round(int(old.sum()) / n, 4),
+        sectors_per_slot_records=round(int(new.sum()) / n, 4),
+        slots_past_first_group=int(later.sum()))
 
 
 def kernel_phase(clf, metas, rows, out, phase="kernels", shape=None,
@@ -673,6 +734,7 @@ def reduced_phase(tmp, lib, acc, fq, dev, timings) -> dict:
         lambda r: nbytes([codes, lens, *r]), shape="reduced")
     W = mm.value.shape[2]
     q = (mm.value.reshape(-1), mm.valid.reshape(-1), None)
+    reduced_layout(idx, q, clf.cap, "reduced")
     record_kernel(
         timings, "reduced", "search_scan_reduced",
         lambda: pipeline.search_scan(idx, *q, W, clf.cap),

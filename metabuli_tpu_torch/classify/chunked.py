@@ -28,14 +28,17 @@ import torch
 from .pipeline import DevIndex, build_dev_index
 
 # device bytes per table row: taxdna + d48 (16) + a group's grest, gstart,
-# gend (12, at most one group per row)
+# gend (12, at most one group per row); a reduced index holds tword (4)
+# in place of d48 and its bucket records (16 B for each bucket, about two
+# a group) in place of prefix
 BYTES_PER_ROW = 28
 # device bytes per table row at the peak of the index build (sort keys,
 # permutation and expansion temporaries): 22.8 GiB for 2^28 rows, measured
 # on an H100 80GB HBM3 (chip_smoke.py's skew DB)
 BUILD_BYTES_PER_ROW = 92
 
-TABLES = ("grest", "gstart", "gend", "taxdna", "d48", "prefix")
+TABLES = ("grest", "gstart", "gend", "taxdna", "d48", "prefix", "brec",
+          "tword")
 
 
 def chunk_bounds(
@@ -125,8 +128,9 @@ class ChunkedIndex:
         for ix in self.chunks:
             if self._buf:
                 ix = dataclasses.replace(ix, **{
-                    k: self._buf[k][:getattr(ix, k).numel()].copy_(
-                        getattr(ix, k), non_blocking=True)
+                    k: self._buf[k][:getattr(ix, k).numel()].view(
+                        getattr(ix, k).shape).copy_(getattr(ix, k),
+                                                    non_blocking=True)
                     for k in self._buf})
             if mark is not None:
                 mark("chunk_copy")

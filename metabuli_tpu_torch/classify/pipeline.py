@@ -23,7 +23,17 @@ The reduced alphabet (``reduced=True``, ``--reduced-aa 1``) keys groups
 by the 32-bit amino-acid part (``value >> 32``, permuted mod 2^32) and
 scores a row on its 32-bit codon-number part, the high word of
 ``taxdna`` (the reference package's ``lo32``), through K11's table
-(``ops.hamming``); it has no d48.
+(``ops.hamming``); it has no d48. Its search layout differs:
+
+  brec   i32 [2^prefix_bits + 1, 4]   one 16-byte record per bucket, in
+                   place of ``prefix``: (the bucket's group count, at most
+                   2^prefix_bits - 1, above the first group's rest bits;
+                   the first group's gstart; its gend; the bucket's first
+                   group), the last record (0, 0, 0, groups)
+  tword  i32 [N]   taxdna's high words, the rows' codon numbers, dense
+
+so one record decides a query of an empty or one-group bucket, and a
+window of n rows reads 4n contiguous bytes (K11, ``_search_records``).
 
 An old-format DB (``kmer_format`` 1) has the same layout: its amino-acid
 key is base-21 where format 2's is 5 bits a residue, which changes no
@@ -142,7 +152,7 @@ class DevIndex:
     gend: torch.Tensor
     taxdna: torch.Tensor
     d48: torch.Tensor | None  # None for the reduced alphabet
-    prefix: torch.Tensor
+    prefix: torch.Tensor | None  # None for the reduced alphabet: brec
     n: int                 # table rows
     prefix_bits: int
     search_iters: int      # lower-bound steps that cover the fullest bucket
@@ -150,10 +160,24 @@ class DevIndex:
     rows_per_hit: float    # size-biased mean group: sum |g|^2 / sum |g|
     reduced: bool = False  # the reduced alphabet (K11 scores it)
     kmer_format: int = 2   # 1: old-format packing (K2's format flag)
+    brec: torch.Tensor | None = None   # reduced: the bucket records
+    tword: torch.Tensor | None = None  # reduced: the dense codon words
 
     @property
     def device(self) -> torch.device:
         return self.grest.device
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the index's tables."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.grest, self.gstart, self.gend, self.taxdna, self.d48,
+            self.prefix, self.brec, self.tword) if t is not None)
+
+    def bucket_prefix(self) -> torch.Tensor:
+        """bucket -> first group, as ``prefix`` (int32 [2^prefix_bits +
+        1]); a reduced index reads it from its records."""
+        return self.prefix if self.brec is None else self.brec[:, 3]
 
     @classmethod
     def from_numpy(cls, grest, gstart, gend, taxdna, d48, prefix,
@@ -181,11 +205,18 @@ class DevIndex:
         size = (gend - gstart).to(torch.int64)
         max_group = int(size.max()) if size.numel() else 1
         rows = int(size.sum())
+        brec = tword = None
+        if reduced:
+            brec = bucket_records(grest, gstart, gend, prefix, pb)
+            # taxdna's high word, exact in int32 (arithmetic shift)
+            tword = (taxdna >> 32).to(torch.int32)
+            prefix = None
         return cls(grest, gstart, gend, taxdna, d48, prefix,
                    n=int(taxdna.numel()), prefix_bits=pb,
                    search_iters=iters, max_group=max(max_group, 1),
                    rows_per_hit=int((size * size).sum()) / max(rows, 1),
-                   reduced=reduced, kmer_format=kmer_format)
+                   reduced=reduced, kmer_format=kmer_format, brec=brec,
+                   tword=tword)
 
     def tables(self):
         return (self.grest, self.gstart, self.gend, self.taxdna, self.d48,
@@ -195,6 +226,36 @@ class DevIndex:
         """The index as ``classify_core`` scans it: itself (a
         ``ChunkedIndex`` yields its chunks, one copied in at a time)."""
         yield self
+
+
+def bucket_records(grest, gstart, gend, prefix, prefix_bits: int,
+                   step: int = 1 << 22):
+    """The reduced index's bucket records (int32 [2^prefix_bits + 1, 4]),
+    one a bucket: x = min(groups, 2^prefix_bits - 1) << rest_bits | the
+    first group's rest (0 for an empty bucket), y and z the first group's
+    gstart and gend, w the bucket's first group; then the sentinel
+    (0, 0, 0, groups). A count at its cap reads its end from the next
+    record's w. Filled ``step`` buckets at a time, so the temporaries stay
+    small beside the records."""
+    if prefix_bits < 1:
+        raise ValueError("bucket records need prefix_bits >= 1")
+    rb = 32 - prefix_bits
+    nb = prefix.numel() - 1
+    rec = torch.zeros((nb + 1, 4), dtype=torch.int32, device=prefix.device)
+    rec[:, 3] = prefix
+    g_max = grest.numel() - 1
+    for a in range(0, nb, step):
+        e = min(a + step, nb)
+        first = prefix[a:e].to(torch.int64)
+        n = prefix[a + 1:e + 1].to(torch.int64) - first
+        has = n > 0
+        g = torch.clamp(first, max=g_max)
+        x = torch.where(has, (torch.clamp(n, max=(1 << prefix_bits) - 1)
+                              << rb) | grest[g].to(torch.int64), 0)
+        rec[a:e, 0] = x - ((x & 0x80000000) << 1)  # uint32 bits
+        rec[a:e, 1] = torch.where(has, gstart[g], 0)
+        rec[a:e, 2] = torch.where(has, gend[g], 0)
+    return rec
 
 
 def build_dev_index(values: np.ndarray, taxids: np.ndarray,
@@ -233,13 +294,14 @@ def build_dev_index(values: np.ndarray, taxids: np.ndarray,
         gend = torch.zeros(1, dtype=torch.int32, device=dev)
         counts = torch.zeros(1 << pb, dtype=torch.int64, device=dev)
     del aa, starts
-    prefix = torch.zeros((1 << pb) + 1, dtype=torch.int64, device=dev)
+    prefix = torch.zeros((1 << pb) + 1, dtype=torch.int32, device=dev)
     prefix[1:] = torch.cumsum(counts, 0)
+    del counts  # before the reduced index's bucket records are made
     taxdna = ((v & 0xFFFFFFFF) << 32) | (tx.to(torch.int64) & 0xFFFFFFFF)
     d48 = None if reduced else expand_db_dna48(v, kmer_format)
     del v, tx
-    return DevIndex._finish(grest, gstart, gend, taxdna, d48,
-                            prefix.to(torch.int32), reduced, kmer_format)
+    return DevIndex._finish(grest, gstart, gend, taxdna, d48, prefix,
+                            reduced, kmer_format)
 
 
 # ------------------------------------------------------------------ K2
@@ -272,7 +334,17 @@ def _hamming48(q: torch.Tensor, t: torch.Tensor):
 
 def _search_groups(index: DevIndex, q_value: torch.Tensor,
                    q_valid: torch.Tensor):
-    """Bucketed lower-bound search -> (group start row, group end, hit)."""
+    """Bucketed lower-bound search -> (group start row, group end, hit):
+    over ``prefix`` (standard index) or the bucket records (reduced)."""
+    if index.brec is not None:
+        return _search_records(index, q_value, q_valid)
+    return _search_prefix(index, q_value, q_valid)
+
+
+def _search_prefix(index: DevIndex, q_value: torch.Tensor,
+                   q_valid: torch.Tensor):
+    """The lower bound of the query's key among its bucket's groups,
+    ``prefix[bucket]`` to ``prefix[bucket + 1]``."""
     rb = key_bits(index.reduced) - index.prefix_bits
     pi = aa_permute(aa_key(q_value, index.reduced), index.reduced)
     rest = (pi & ((1 << rb) - 1)).to(torch.int32)
@@ -294,6 +366,43 @@ def _search_groups(index: DevIndex, q_value: torch.Tensor,
     return gs, ge, hit
 
 
+def _search_records(index: DevIndex, q_value: torch.Tensor,
+                    q_valid: torch.Tensor):
+    """K11's search over the bucket records, as the kernel makes it: the
+    record decides an empty bucket and a key equal to its first group's;
+    a larger key of a bucket with more groups takes the lower bound over
+    the others' grest (its end from the next record where the count is
+    at its cap). A miss gives an empty window at row 0."""
+    pb = index.prefix_bits
+    rb = 32 - pb
+    pi = aa_permute(aa_key(q_value, True), True)
+    rest = pi & ((1 << rb) - 1)
+    bucket = pi >> rb
+    rec = index.brec[bucket].to(torch.int64)
+    x = rec[:, 0] & 0xFFFFFFFF
+    n, rest0, g0 = x >> rb, x & ((1 << rb) - 1), rec[:, 3]
+    first = (n > 0) & (rest == rest0)
+    more = (n > 0) & (rest > rest0)
+    end = torch.where(n == (1 << pb) - 1,
+                      index.brec[bucket + 1, 3].to(torch.int64), g0 + n)
+    lo = g0 + 1
+    hi = torch.where(more, end, lo)
+    g_max = index.grest.numel() - 1
+    for _ in range(index.search_iters):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        less = index.grest[torch.clamp(mid, max=g_max)] < rest
+        lo = torch.where(active & less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    g = torch.clamp(lo, max=g_max)
+    later = more & (lo < end) & (index.grest[g] == rest)
+    hit = q_valid & (first | later)
+    gs = torch.where(first, rec[:, 1], index.gstart[g].to(torch.int64))
+    ge = torch.where(first, rec[:, 2], index.gend[g].to(torch.int64))
+    gs = torch.where(hit, gs, 0)
+    return gs, torch.where(hit, ge, 0), hit
+
+
 def search_scan_plain(index: DevIndex, q_value: torch.Tensor,
                       q_valid: torch.Tensor, q_dna48: torch.Tensor | None,
                       W: int, cap: int) -> Candidates:
@@ -310,7 +419,8 @@ def search_scan_plain(index: DevIndex, q_value: torch.Tensor,
     row = gs[slot] + torch.arange(slot.numel(), device=dev) - first[slot]
     if index.reduced:
         hsum, fwd, rev = hamming_all_reduced_plain(
-            q_value[slot] & 0xFFFFFFFF, srl(index.taxdna[row], 32))
+            q_value[slot] & 0xFFFFFFFF,
+            index.tword[row].to(torch.int64) & 0xFFFFFFFF)
     else:
         hsum, fwd, rev = _hamming48(q_dna48[slot], index.d48[row])
     frame = torch.div(slot, W, rounding_mode="floor") % 6
@@ -343,14 +453,16 @@ def search_scan(index: DevIndex, q_value: torch.Tensor,
     """Kernel K2 wrapper: a count launch, a scan of the per-warp counts,
     one read-back of the output size, a write launch in slot order. A
     reduced index launches K11, K2's reduced variant (its query word is
-    ``q_value``'s low half, so ``q_dna48`` is not read). CPU tensors take
+    ``q_value``'s low half, so ``q_dna48`` is not read; it searches the
+    bucket records and scores the dense codon words). CPU tensors take
     the plain version."""
     if q_value.device.type == "cpu":
         return search_scan_plain(index, q_value, q_valid, q_dna48, W, cap)
     reduced = index.reduced
-    # the query and table words the scan scores
+    # the query and table words the scan scores, and the bucket table
     q_word = q_value if reduced else q_dna48
-    t_word = index.taxdna if reduced else index.d48
+    t_word = index.tword if reduced else index.d48
+    buckets = index.brec if reduced else index.prefix
     if q_value.dtype != torch.int64 or q_word.dtype != torch.int64 \
             or q_valid.dtype != torch.bool:
         raise TypeError("search_scan: value/dna48 int64, valid bool")
@@ -358,8 +470,11 @@ def search_scan(index: DevIndex, q_value: torch.Tensor,
         raise ValueError(f"search_scan: cap {cap} outside (0, 2^31)")
     dev = q_value.device
     Q = q_value.numel()
-    tabs = (index.grest, index.gstart, index.gend, index.prefix, t_word)
+    tabs = (index.grest, index.gstart, index.gend, buckets, t_word)
     build.require_cuda("search_scan", q_value, q_valid, q_word, *tabs)
+    if reduced and buckets.data_ptr() % 16:
+        raise ValueError("search_scan: bucket records must be 16-byte "
+                         "aligned")
     i32 = dict(dtype=torch.int32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     if Q == 0:
@@ -385,7 +500,7 @@ def search_scan(index: DevIndex, q_value: torch.Tensor,
     rc = count(
         q_value.data_ptr(), q_valid.data_ptr(), q_word.data_ptr(), Q, W,
         index.grest.data_ptr(), index.gstart.data_ptr(),
-        index.gend.data_ptr(), index.prefix.data_ptr(),
+        index.gend.data_ptr(), buckets.data_ptr(),
         t_word.data_ptr(), index.prefix_bits, cap, start.data_ptr(),
         wlen.data_ptr(), cut.data_ptr(), acc.data_ptr(),
         stash.data_ptr(), n_stash, top.data_ptr(), wstash.data_ptr(), *lut,

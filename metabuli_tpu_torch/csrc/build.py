@@ -74,8 +74,9 @@ _SIGNATURES = {
     "mtb_search_write": [_P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _P],
     # K11: the same two launches for the reduced alphabet; value stands in
-    # for dna48 (its low 32 bits are the query's codon numbers), taxdna
-    # for d48 (its high 32 bits the row's), then the 16x16 int32 LUT
+    # for dna48 (its low 32 bits are the query's codon numbers), the
+    # bucket records for prefix, tword (the rows' codon numbers) for d48,
+    # then the 16x16 int32 LUT
     "mtb_search_count_reduced": [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P,
                                  _I, _I, _P, _P, _P, _P, _P, _L, _P, _P,
                                  _P, _I, _P],

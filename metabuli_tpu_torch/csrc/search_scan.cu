@@ -41,12 +41,35 @@
 // Reduced = true (mtb_search_count_reduced, mtb_search_write_reduced):
 // the amino-acid key is value >> 32 (permuted mod 2^32), the query word is
 // value's low 32 bits (8 codon numbers of 4 bits), the candidate word the
-// high 32 bits of the row's taxdna, and the distance is
-// metabuli_tpu/ops/hamming.py:119 hamming_all_reduced: per codon a look-up
-// of the 16x16 distance table, staged in shared memory (lanes index it
-// divergently, which a __constant__ table would serialise), summed, and
-// ORed into the 16-bit words with the reference's spill quirk kept (a
-// distance of 4 spills into the next codon's lane).
+// row's 32-bit codon-number word (the high half of its taxdna), and the
+// distance is metabuli_tpu/ops/hamming.py:119 hamming_all_reduced: per
+// codon a look-up of the 16x16 distance table, staged in shared memory
+// (lanes index it divergently, which a __constant__ table would
+// serialise), summed, and ORed into the 16-bit words with the reference's
+// spill quirk kept (a distance of 4 spills into the next codon's lane).
+//
+// What bounds K11 on this card: not its bytes but the chain of dependent
+// scattered loads a query slot waits on. Over the standard layout a slot
+// read prefix[bucket] and prefix[bucket + 1], then the lower bound's grest
+// entries, then on a hit gstart and gend (two more arrays, two more
+// sectors), then its window's rows at an 8-byte stride (taxdna, half of
+// every sector the taxid): about 2 DRAM round trips for a miss in a
+// non-empty bucket and 4 for a hit before its first row, times 2 M slots
+// a batch. The reduced index therefore has a layout of its own
+// (classify/pipeline.py::bucket_records):
+//   * one 16-byte record per bucket (int4, one load): the bucket's group
+//     count above its first group's rest bits, that group's gstart and
+//     gend, and the bucket's first group. It decides a miss in an empty
+//     or one-group bucket, and a hit on the first group, which is most
+//     hits at ~2 buckets a group; a larger key in a bucket of several
+//     groups goes on with the lower bound over grest (from the record's
+//     first group + 1, to first + count, or the next record's first where
+//     the count is at its cap), then gstart and gend as before;
+//   * a dense int32 column of the rows' codon words (tword), so a window
+//     of n rows reads 4n contiguous bytes.
+// A hit then waits on two round trips before its rows, a miss on one.
+// The two launches, the stash, the one read-back and the (slot, row)
+// output order are K2's.
 //
 // Old-format DBs (kmer_format 1) pack a metamer's codons little-endian
 // (extract.cu), so a dna48 word holds slot j at bits 6j, not 6(7-j): the
@@ -63,6 +86,7 @@
 // mtb_search_write writes the kept pairs at the scanned offsets.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -104,20 +128,21 @@ __device__ __forceinline__ int hamming_reduced(uint32_t q, uint32_t t,
   return sum;
 }
 
-// the scan's table word of a row and its distance to the query word: the
-// row's dna48 (standard), or its codon numbers, the high half of taxdna
-// (reduced)
+// the table word a row is scored on: its dna48 (standard) or its codon
+// numbers, tword (reduced)
+template <bool Reduced>
+using Word = std::conditional_t<Reduced, uint32_t, int64_t>;
+
+// the scan's table word of a row and its distance to the query word
 template <bool Reduced>
 __device__ __forceinline__ int distance(uint64_t q,
-                                        const int64_t* __restrict__ table,
+                                        const Word<Reduced>* __restrict__ table,
                                         int32_t row, bool fwd,
                                         const uint8_t* lut, int* h16) {
-  if (Reduced)
-    return hamming_reduced(
-        (uint32_t)q,
-        reinterpret_cast<const uint32_t*>(table)[2 * (int64_t)row + 1], fwd,
-        lut, h16);
-  return hamming48(q, (uint64_t)table[row], fwd, h16);
+  if constexpr (Reduced)
+    return hamming_reduced((uint32_t)q, table[row], fwd, lut, h16);
+  else
+    return hamming48(q, (uint64_t)table[row], fwd, h16);
 }
 
 __device__ __forceinline__ long long warp_inclusive_sum(long long x,
@@ -158,7 +183,7 @@ template <bool Reduced>
 __device__ __forceinline__ Pair pair_at(const FlatWindows& fw, long long f0,
                                         int lane, int len, int32_t gs,
                                         uint64_t q, int frame,
-                                        const int64_t* __restrict__ d48,
+                                        const Word<Reduced>* __restrict__ d48,
                                         const uint8_t* lut, bool old_format) {
   Pair p;
   long long f = f0 + lane;
@@ -184,8 +209,8 @@ __device__ __forceinline__ Pair pair_at(const FlatWindows& fw, long long f0,
 template <bool Reduced, class Put>
 __device__ __forceinline__ long long walk_kept(
     const FlatWindows& fw, int lane, int len, int32_t gs, uint64_t q,
-    int frame, int c, const int64_t* __restrict__ d48, const uint8_t* lut,
-    bool old_format, Put put) {
+    int frame, int c, const Word<Reduced>* __restrict__ d48,
+    const uint8_t* lut, bool old_format, Put put) {
   long long kept = 0;
   unsigned lt = (1u << lane) - 1;
   for (long long f0 = 0; f0 < fw.total; f0 += 32) {
@@ -210,8 +235,47 @@ __device__ __forceinline__ void stage_lut(uint8_t* s_lut,
   __syncthreads();
 }
 
+// K11's search of one valid slot's key: its bucket's record, then, for a
+// larger key in a bucket of several groups, the lower bound over the other
+// groups' grest. Returns whether the key has a group; sets its rows.
+__device__ __forceinline__ bool find_reduced(
+    uint64_t value, const int4* __restrict__ rec,
+    const int32_t* __restrict__ grest, const int32_t* __restrict__ gstart,
+    const int32_t* __restrict__ gend, int prefix_bits, int32_t* gs,
+    int32_t* n_rows) {
+  const int rb = 32 - prefix_bits;  // 1 <= prefix_bits <= 31
+  const uint32_t pi = (uint32_t)((value >> 32) * kPermMult);
+  const uint32_t rest_mask = (uint32_t)((1ull << rb) - 1);
+  const int32_t rest = (int32_t)(pi & rest_mask);
+  const uint32_t bucket = (uint32_t)((uint64_t)pi >> rb);
+  const int4 r = rec[bucket];
+  const uint32_t n = (uint32_t)((uint64_t)(uint32_t)r.x >> rb);
+  const int32_t rest0 = (int32_t)((uint32_t)r.x & rest_mask);
+  if (n == 0 || rest < rest0) return false;
+  if (rest == rest0) {
+    *gs = r.y;
+    *n_rows = r.z - r.y;
+    return true;
+  }
+  int32_t lo = r.w + 1;
+  const int32_t end = n == (uint32_t)((1ull << prefix_bits) - 1)
+                          ? rec[bucket + 1].w
+                          : r.w + (int32_t)n;
+  int32_t hi = end;
+  while (lo < hi) {
+    int32_t mid = (lo + hi) >> 1;
+    if (grest[mid] < rest) lo = mid + 1; else hi = mid;
+  }
+  if (lo < end && grest[lo] == rest) {
+    *gs = gstart[lo];
+    *n_rows = gend[lo] - *gs;
+    return true;
+  }
+  return false;
+}
+
 // count launch; for Reduced, qd48 is value itself (the query word is its
-// low half) and d48 is taxdna
+// low half), d48 is tword and rec replaces prefix
 template <bool Reduced>
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
@@ -220,7 +284,8 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
              const int32_t* __restrict__ gstart,
              const int32_t* __restrict__ gend,
              const int32_t* __restrict__ prefix,
-             const int64_t* __restrict__ d48, int prefix_bits, int cap,
+             const int4* __restrict__ rec,
+             const Word<Reduced>* __restrict__ d48, int prefix_bits, int cap,
              int32_t* __restrict__ start, int32_t* __restrict__ wlen,
              int32_t* __restrict__ cut, int64_t* __restrict__ acc,
              int2* __restrict__ stash, int64_t stash_cap,
@@ -245,25 +310,31 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
     q = Reduced ? (uint64_t)qd48[s] & 0xFFFFFFFFull : (uint64_t)qd48[s];
     frame = (int)((s / W) % 6);
     if (valid[s]) {
-      // the amino-acid key: 40 bits at 24 (standard), 32 at 32 (reduced)
-      int rb = (Reduced ? 32 : 40) - prefix_bits;
-      uint64_t pi = Reduced ? ((((uint64_t)value[s] >> 32) * kPermMult)
-                               & 0xFFFFFFFFull)
-                            : ((((uint64_t)value[s] >> 24) * kPermMult)
-                               & kMask40);
-      int32_t rest = (int32_t)(pi & ((1ull << rb) - 1));
-      int64_t bucket = (int64_t)(pi >> rb);
-      int32_t lo = prefix[bucket], hi = prefix[bucket + 1];
-      int32_t end = hi;
-      while (lo < hi) {
-        int32_t mid = (lo + hi) >> 1;
-        if (grest[mid] < rest) lo = mid + 1; else hi = mid;
-      }
-      if (lo < end && grest[lo] == rest) {
-        gs = gstart[lo];
-        int32_t n = gend[lo] - gs;
-        over = n > cap;
-        len = over ? cap : n;
+      if constexpr (Reduced) {
+        int32_t n;
+        if (find_reduced((uint64_t)value[s], rec, grest, gstart, gend,
+                         prefix_bits, &gs, &n)) {
+          over = n > cap;
+          len = over ? cap : n;
+        }
+      } else {
+        // the amino-acid key: 40 bits at 24
+        int rb = 40 - prefix_bits;
+        uint64_t pi = (((uint64_t)value[s] >> 24) * kPermMult) & kMask40;
+        int32_t rest = (int32_t)(pi & ((1ull << rb) - 1));
+        int64_t bucket = (int64_t)(pi >> rb);
+        int32_t lo = prefix[bucket], hi = prefix[bucket + 1];
+        int32_t end = hi;
+        while (lo < hi) {
+          int32_t mid = (lo + hi) >> 1;
+          if (grest[mid] < rest) lo = mid + 1; else hi = mid;
+        }
+        if (lo < end && grest[lo] == rest) {
+          gs = gstart[lo];
+          int32_t n = gend[lo] - gs;
+          over = n > cap;
+          len = over ? cap : n;
+        }
       }
     }
   }
@@ -320,7 +391,7 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
 template <bool Reduced>
 __global__ void __launch_bounds__(kThreads)
 write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
-             const int64_t* __restrict__ d48,
+             const Word<Reduced>* __restrict__ d48,
              const int32_t* __restrict__ start,
              const int32_t* __restrict__ wlen,
              const int32_t* __restrict__ cut,
@@ -373,22 +444,24 @@ write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
 template <bool Reduced>
 int count(const int64_t* value, const bool* valid, const int64_t* qd48,
           int64_t Q, int W, const int32_t* grest, const int32_t* gstart,
-          const int32_t* gend, const int32_t* prefix, const int64_t* d48,
-          int prefix_bits, int cap, int32_t* start, int32_t* wlen,
-          int32_t* cut, int64_t* acc, int2* stash, int64_t stash_cap,
-          unsigned long long* stash_top, int64_t* wstash, const int32_t* lut,
-          int kmer_format, cudaStream_t stream) {
+          const int32_t* gend, const int32_t* prefix, const int4* rec,
+          const Word<Reduced>* d48, int prefix_bits, int cap, int32_t* start,
+          int32_t* wlen, int32_t* cut, int64_t* acc, int2* stash,
+          int64_t stash_cap, unsigned long long* stash_top, int64_t* wstash,
+          const int32_t* lut, int kmer_format, cudaStream_t stream) {
   if (kmer_format != 1 && kmer_format != 2) return (int)cudaErrorInvalidValue;
+  if (Reduced && (prefix_bits < 1 || prefix_bits > 31))
+    return (int)cudaErrorInvalidValue;
   int64_t blocks = (Q + kThreads - 1) / kThreads;
   count_kernel<Reduced><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      value, valid, qd48, Q, W, grest, gstart, gend, prefix, d48,
+      value, valid, qd48, Q, W, grest, gstart, gend, prefix, rec, d48,
       prefix_bits, cap, start, wlen, cut, acc, stash, stash_cap, stash_top,
       wstash, lut, kmer_format == 1);
   return (int)cudaGetLastError();
 }
 
 template <bool Reduced>
-int write(const int64_t* qd48, int64_t Q, int W, const int64_t* d48,
+int write(const int64_t* qd48, int64_t Q, int W, const Word<Reduced>* d48,
           const int32_t* start, const int32_t* wlen, const int32_t* cut,
           const int64_t* scan, const int2* stash, const int64_t* wstash,
           int32_t* out_row, int32_t* out_slot, int32_t* out_pay,
@@ -413,9 +486,9 @@ extern "C" int mtb_search_count(const int64_t* value, const bool* valid,
                                 unsigned long long* stash_top, int64_t* wstash,
                                 int kmer_format, cudaStream_t stream) {
   return count<false>(value, valid, qd48, Q, W, grest, gstart, gend, prefix,
-                      d48, prefix_bits, cap, start, wlen, cut, acc, stash,
-                      stash_cap, stash_top, wstash, nullptr, kmer_format,
-                      stream);
+                      nullptr, d48, prefix_bits, cap, start, wlen, cut, acc,
+                      stash, stash_cap, stash_top, wstash, nullptr,
+                      kmer_format, stream);
 }
 
 extern "C" int mtb_search_write(const int64_t* qd48, int64_t Q, int W,
@@ -430,27 +503,29 @@ extern "C" int mtb_search_write(const int64_t* qd48, int64_t Q, int W,
                       stream);
 }
 
-// K11: value stands in for qd48, taxdna for d48; lut is the 16x16 int32
-// distance table
+// K11: value stands in for qd48, the bucket records (int32 [2^prefix_bits
+// + 1, 4], 16-byte aligned) for prefix, tword for d48; lut is the 16x16
+// int32 distance table
 extern "C" int mtb_search_count_reduced(
     const int64_t* value, const bool* valid, const int64_t* qword, int64_t Q,
     int W, const int32_t* grest, const int32_t* gstart, const int32_t* gend,
-    const int32_t* prefix, const int64_t* taxdna, int prefix_bits, int cap,
+    const int4* rec, const uint32_t* tword, int prefix_bits, int cap,
     int32_t* start, int32_t* wlen, int32_t* cut, int64_t* acc, int2* stash,
     int64_t stash_cap, unsigned long long* stash_top, int64_t* wstash,
     const int32_t* lut, int kmer_format, cudaStream_t stream) {
-  return count<true>(value, valid, qword, Q, W, grest, gstart, gend, prefix,
-                     taxdna, prefix_bits, cap, start, wlen, cut, acc, stash,
-                     stash_cap, stash_top, wstash, lut, kmer_format, stream);
+  return count<true>(value, valid, qword, Q, W, grest, gstart, gend, nullptr,
+                     rec, tword, prefix_bits, cap, start, wlen, cut, acc,
+                     stash, stash_cap, stash_top, wstash, lut, kmer_format,
+                     stream);
 }
 
 extern "C" int mtb_search_write_reduced(
-    const int64_t* qword, int64_t Q, int W, const int64_t* taxdna,
+    const int64_t* qword, int64_t Q, int W, const uint32_t* tword,
     const int32_t* start, const int32_t* wlen, const int32_t* cut,
     const int64_t* scan, const int2* stash, const int64_t* wstash,
     int32_t* out_row, int32_t* out_slot, int32_t* out_pay, const int32_t* lut,
     int kmer_format, cudaStream_t stream) {
-  return write<true>(qword, Q, W, taxdna, start, wlen, cut, scan, stash,
+  return write<true>(qword, Q, W, tword, start, wlen, cut, scan, stash,
                      wstash, out_row, out_slot, out_pay, lut, kmer_format,
                      stream);
 }

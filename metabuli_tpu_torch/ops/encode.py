@@ -399,8 +399,8 @@ def extract_aa_kmers(codes: torch.Tensor, lens: torch.Tensor, *,
                      k: int = AA_K, syncmer: bool = False,
                      smer_len: int = 5):
     """Kernel K12 wrapper, protein rows: CUDA tensors launch
-    ``mtb_extract_aa_kmers`` (a CTA per chunk of a row's windows), CPU
-    tensors take the plain version."""
+    ``mtb_extract_aa_kmers`` (a warp per chunk of 288 windows of a row),
+    CPU tensors take the plain version."""
     if codes.device.type == "cpu":
         return extract_aa_kmers_plain(codes, lens, k=k, syncmer=syncmer,
                                       smer_len=smer_len)
@@ -427,8 +427,9 @@ def extract_aa_kmers_dna(codes: torch.Tensor, lens: torch.Tensor, *,
                          k: int = AA_K):
     """Kernel K12 wrapper, DNA rows: CUDA tensors launch
     ``mtb_extract_aa_kmers_dna`` (the six frames translated and scanned in
-    one pass, a CTA per chunk of a row's windows), CPU tensors take the
-    plain version."""
+    one pass: a warp per row of up to 484 bases and, where the batch's
+    padded length allows longer rows, a CTA per chunk of each such row's
+    windows), CPU tensors take the plain version."""
     if codes.device.type == "cpu":
         return extract_aa_kmers_dna_plain(codes, lens, k=k)
     _check_aa_args("extract_aa_kmers_dna", codes, lens, k)

@@ -1,4 +1,5 @@
-"""Kernels K1-K4 against their plain PyTorch versions on the card.
+"""Kernels K1-K4, K11, K12 and the probes against their plain PyTorch
+versions on the card.
 
 Needs a CUDA device (and nvcc for the build); skipped elsewhere. Inputs
 come from a small seeded world; tolerance is zero: integers equal and
@@ -745,6 +746,45 @@ def test_k11_search_scan_reduced_matches_plain(reduced_world, cap, stash,
         assert got.n_rewalk > 0
 
 
+@pytest.mark.parametrize("stash", [0, None])
+@pytest.mark.parametrize("cap", [3, 4096])
+@pytest.mark.parametrize("bits", [None, 1, 5, 9],
+                         ids=["picked", "b1", "b5", "b9"])
+def test_k11_bucket_shapes_match_plain(reduced_world, bits, cap, stash,
+                                       monkeypatch):
+    """K11 over bucket records of every shape: at the picked width
+    buckets of 0, 1 and several groups, forced to 1, 5 or 9 prefix bits
+    buckets of hundreds of groups (at 1 and 5 bits with the count at the
+    record's cap); queries that hit every table row's group, the reads'
+    metamers and random keys; groups cut at a cap of 3 or whole, with the
+    stash and with every warp walking again."""
+    if bits is not None:
+        monkeypatch.setattr(pipeline, "pick_prefix_bits", lambda n: bits)
+    if stash is not None:
+        monkeypatch.setattr(pipeline, "stash_per_slot", lambda index: stash)
+    values, taxids, reads = reduced_world
+    index = build_dev_index(values, taxids, device="cuda", reduced=True)
+    assert index.prefix is None and index.brec.data_ptr() % 16 == 0
+    rng = np.random.default_rng(31)
+    codes, lens, _, _ = _batch(reads[:64], "cuda")
+    mm = encode.extract_metamers(codes, lens, reduced=True)
+    rand = torch.from_numpy(rng.integers(0, 1 << 63, 5000, dtype=np.int64))
+    q_value = torch.cat([mm.value.reshape(-1),
+                         torch.from_numpy(values.view(np.int64)).cuda(),
+                         rand.cuda()])
+    q_valid = torch.from_numpy(rng.random(q_value.numel()) < 0.9).cuda()
+    W = mm.value.shape[2]
+    got = search_scan(index, q_value, q_valid, None, W, cap)
+    want = search_scan_plain(index, q_value, q_valid, None, W, cap)
+    torch.cuda.synchronize()
+    _eq(got[:3], want[:3])
+    assert got.n_over_cap == want.n_over_cap
+    assert (got.n_over_cap > 0) == (cap == 3)
+    assert got.row.numel() > len(values) // 2
+    if stash == 0:
+        assert got.n_rewalk > 0
+
+
 def test_k1_k11_empty_batch():
     """An empty batch, and reads too short for a window: K1 launches
     nothing and returns empty outputs; K11 returns no candidates."""
@@ -775,6 +815,27 @@ def test_reduced_core_matches_plain(reduced_world):
     torch.cuda.synchronize()
     _eq(got, want)
     assert gc == wc and gc["n_matches"] > 0
+
+
+def test_reduced_chunked_index_matches_single(reduced_world):
+    """A reduced index streamed through the card in chunks: each chunk's
+    bucket records and codon column are copied into the shared device
+    buffers (records sized for the largest chunk, viewed to each chunk's
+    shape), and the sorted columns equal the single index's."""
+    from metabuli_tpu_torch.classify.chunked import ChunkedIndex
+
+    values, taxids, reads = reduced_world
+    ch = ChunkedIndex(values, taxids, len(values) * 6, reduced=True,
+                      device="cuda")
+    assert len(ch.bounds) >= 3 and "brec" in ch._buf and "tword" in ch._buf
+    single = build_dev_index(values, taxids, device="cuda", reduced=True)
+    t2s = torch.arange(64, dtype=torch.int32, device="cuda") % 5 + 1
+    batch = _batch(reads, "cuda")
+    got, gc = classify_core(ch, t2s, *batch, cap=4096)
+    want, wc = classify_core(single, t2s, *batch, cap=4096)
+    torch.cuda.synchronize()
+    _eq(got, want)
+    assert gc["n_matches"] == wc["n_matches"] > 0
 
 
 # ------------------------------------------ old-format DBs (K1, K2 flag)
@@ -910,6 +971,88 @@ def test_k12_dna_matches_plain(n_prob, shape):
     torch.cuda.synchronize()
     _eq(got, want)
     assert int(got[2][:, :3].sum()) > 0 and int(got[2][:, 3:].sum()) > 0
+
+
+def _dna_rows(lengths, n_prob, rng):
+    return [bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), n,
+                             p=np.array([1, 1, 1, 1, 0]) * (1 - n_prob) / 4
+                             + np.array([0, 0, 0, 0, n_prob])))
+            for n in lengths]
+
+
+@pytest.mark.parametrize("n_prob", [0.0, 0.05])
+@pytest.mark.parametrize("k", [1, 12, 32])
+def test_k12_dna_warp_and_chunk_rows_match_plain(k, n_prob):
+    """K12 on DNA rows of 0-11 bases and 3m + {0, 1, 2} around the warp
+    path's limit (160 codons a frame: rows of up to 484 bases) and past
+    it, with 150 bp reads, in one batch (the warp kernel and the
+    CTA-per-chunk kernel each take their rows); then a batch of short rows
+    only (the warp kernel alone) and one viewed from its second row (rows
+    off 16-byte alignment); k = 1, 12 and 32; every slot equal."""
+    rng = np.random.default_rng(k + int(100 * n_prob))
+    lengths = (list(range(12)) + [3 * m + r for m in (12, 40, 159, 160, 161,
+                                                      300)
+                                  for r in (0, 1, 2)] + [150] * 40)
+    for batch in (lengths, [n for n in lengths if n <= 484]):
+        codes, lens = encode_seqs_padded(_dna_rows(batch, n_prob, rng))
+        codes = torch.from_numpy(codes).cuda()
+        lens = torch.from_numpy(lens).cuda()
+        for c, n in ((codes, lens), (codes[1:], lens[1:].clone())):
+            before = build.launches["extract_aa_kmers_dna"]
+            got = encode.extract_aa_kmers_dna(c, n, k=k)
+            assert build.launches["extract_aa_kmers_dna"] == before + 1
+            want = encode.extract_aa_kmers_dna_plain(c, n, k=k)
+            torch.cuda.synchronize()
+            _eq(got, want)
+            # without N bases some windows of every k are valid
+            assert int(got[2].sum()) > 0 or n_prob > 0
+
+
+@pytest.mark.parametrize("k,syncmer,smer_len", [
+    (12, False, 5), (12, True, 5), (1, False, 1), (32, True, 12),
+    (32, False, 5)])
+def test_k12_protein_short_rows_and_chunks_match_plain(k, syncmer,
+                                                       smer_len):
+    """K12 on protein rows shorter than k, of exactly k and around the
+    warp's 288-window chunks, syncmers on and off, at k = 1, 12 and 32;
+    also viewed from the second row (rows off 16-byte alignment)."""
+    rng = np.random.default_rng(k + 3 * smer_len + int(syncmer))
+    lengths = [0, 1, max(0, k - 1), k, k + 1, 287, 288, 289, 300, 576,
+               577, 700] + list(rng.integers(1, 400, 40))
+    seqs = [bytes(rng.choice(AA_LETTERS, n)) for n in lengths]
+    codes, lens = encode.encode_aa_seqs_padded(seqs, 720)
+    codes = torch.from_numpy(codes).cuda()
+    lens = torch.from_numpy(lens).cuda()
+    for c, n in ((codes, lens), (codes[1:], lens[1:].clone())):
+        got = encode.extract_aa_kmers(c, n, k=k, syncmer=syncmer,
+                                      smer_len=smer_len)
+        want = encode.extract_aa_kmers_plain(c, n, k=k, syncmer=syncmer,
+                                             smer_len=smer_len)
+        torch.cuda.synchronize()
+        _eq(got, want)
+        assert int(got[2].sum()) > 0
+
+
+def test_k12_batches_past_one_warp_an_item_match_plain():
+    """Batches of more items than the warp kernels' grid holds (four
+    waves of the card's CTAs, a warp an item): warps walk several items,
+    loading the next one's bytes while they pack one."""
+    rng = np.random.default_rng(12)
+    dna = _dna_rows([150] * 24_000 + [151, 152, 0], 0.01, rng)
+    codes, lens = encode_seqs_padded(dna)
+    codes = torch.from_numpy(codes).cuda()
+    lens = torch.from_numpy(lens).cuda()
+    _eq(encode.extract_aa_kmers_dna(codes, lens),
+        encode.extract_aa_kmers_dna_plain(codes, lens))
+    seqs = [bytes(rng.choice(AA_LETTERS, n))
+            for n in rng.integers(0, 700, 12_000)]
+    codes, lens = encode.encode_aa_seqs_padded(seqs, 720)
+    codes = torch.from_numpy(codes).cuda()
+    lens = torch.from_numpy(lens).cuda()
+    for syncmer in (False, True):
+        _eq(encode.extract_aa_kmers(codes, lens, syncmer=syncmer),
+            encode.extract_aa_kmers_plain(codes, lens, syncmer=syncmer))
+    torch.cuda.synchronize()
 
 
 def test_k12_empty_batches():

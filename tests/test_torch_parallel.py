@@ -116,14 +116,19 @@ def test_shard_tables_equal_jax(kind, n_shards):
         jprefix = jdb[5][i]
         g = int(jprefix[-1])
         assert b - a == ix.n == (int(jdb[2][i][:g].max()) if g else 0) > 0
-        assert int(ix.prefix[-1]) == g
+        prefix = ix.bucket_prefix()
+        assert int(prefix[-1]) == g
         assert np.array_equal(ix.gstart.numpy(), jdb[1][i][:g])
         assert np.array_equal(ix.gend.numpy(), jdb[2][i][:g])
         assert np.array_equal(
-            _group_keys(ix.prefix.numpy(), ix.grest.numpy(), g, kb),
+            _group_keys(prefix.numpy(), ix.grest.numpy(), g, kb),
             _group_keys(jprefix, jdb[0][i], g, kb))
         td = ix.taxdna.numpy().view(np.uint64)
-        if reduced:
+        if reduced:  # the shard carries its bucket records and codon words
+            assert ix.prefix is None and ix.brec.shape == (
+                (1 << ix.prefix_bits) + 1, 4)
+            assert np.array_equal(ix.tword.numpy().view(np.uint32),
+                                  (td >> np.uint64(32)).astype(np.uint32))
             assert np.array_equal((td >> np.uint64(32)).astype(np.uint32),
                                   jdb[3][i][:b - a].view(np.uint32))
             assert np.array_equal(td.astype(np.uint32).view(np.int32),

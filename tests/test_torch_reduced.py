@@ -4,6 +4,7 @@ core, and ``build`` and ``classify`` through both CLIs, against the JAX
 package on the CPU. Tolerance is zero: integers, match columns and output
 files are equal."""
 
+import dataclasses
 import os
 import pathlib
 
@@ -19,7 +20,10 @@ from metabuli_tpu.cli import main as jax_main
 from metabuli_tpu.ops import encode as jenc
 from metabuli_tpu.ops import hamming as jham
 from metabuli_tpu.ops.genetic_code import encode_seqs_padded
-from metabuli_tpu_torch.classify.pipeline import (build_dev_index,
+from metabuli_tpu_torch.classify import pipeline
+from metabuli_tpu_torch.classify.pipeline import (_search_prefix,
+                                                  _search_records,
+                                                  build_dev_index,
                                                   classify_core,
                                                   search_scan_plain)
 from metabuli_tpu_torch.cli import main as port_main
@@ -204,6 +208,114 @@ def test_reduced_core_equals_jax(syncmer, deep):
                     host["pos"], host["frame"], host["species"],
                     host["qid"]))
     _assert_equal_host({k: v[o] for k, v in host.items()}, want, len(o))
+
+
+def _record_queries(values, reads, rng):
+    """Query slots against a reduced table: the reads' metamers, every
+    table row's value (hits) and random values (mostly misses), a tenth
+    of them invalid."""
+    codes, lens = encode_seqs_padded(reads)
+    mm = tenc.extract_metamers_plain(torch.from_numpy(codes),
+                                     torch.from_numpy(lens), reduced=True)
+    rand = rng.integers(0, 1 << 63, 4000, dtype=np.int64)
+    q_value = torch.cat([mm.value.reshape(-1),
+                         torch.from_numpy(values.view(np.int64)),
+                         torch.from_numpy(rand)])
+    q_valid = torch.from_numpy(rng.random(q_value.numel()) < 0.9)
+    return q_value, q_valid
+
+
+def _prefix_layout(index):
+    """The same reduced index searched over ``prefix`` (the standard
+    layout's lower bound)."""
+    return dataclasses.replace(index, prefix=index.bucket_prefix(),
+                               brec=None)
+
+
+@pytest.fixture(scope="module")
+def jax_world_matches():
+    """``_reduced_world(0)`` and the JAX package's host matches of its
+    reads at a cap of 4,096."""
+    values, taxids, t2s, reads = _reduced_world(0)
+    codes, lens = encode_seqs_padded(reads)
+    n = len(reads)
+    want = matches_to_host(classify_batch_indexed(
+        jax_index(values, taxids, reduced=True), t2s, codes, lens,
+        np.zeros(n, np.int32), np.arange(n, dtype=np.int32), cap=4096,
+        max_matches=1 << 18, reduced=True), t2s)
+    return (values, taxids, t2s, reads), want
+
+
+@pytest.mark.parametrize("bits", [None, 1, 2, 5, 9],
+                         ids=["picked", "b1", "b2", "b5", "b9"])
+def test_bucket_records_search_equals_prefix_search(bits, monkeypatch,
+                                                    jax_world_matches):
+    """The reduced index's bucket records and codon column: the plain
+    search over the records gives the lower bound over ``prefix``'s
+    (gstart, gend, hit), search_scan_plain the same candidates over both
+    layouts, and classify_core the JAX package's matches. At the picked
+    width buckets hold 0, 1 and several groups; forced to 1-9 prefix bits
+    they hold hundreds, with group counts at the record's cap (the end
+    read from the next record)."""
+    if bits is not None:
+        monkeypatch.setattr(pipeline, "pick_prefix_bits", lambda n: bits)
+    (values, taxids, t2s, reads), want = jax_world_matches
+    index = build_dev_index(values, taxids, reduced=True)
+    pb = index.prefix_bits
+    assert index.prefix is None and index.brec.shape == ((1 << pb) + 1, 4)
+    assert index.brec.dtype == index.tword.dtype == torch.int32
+    assert np.array_equal(index.tword.numpy().view(np.uint32),
+                          (values & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    prefix = index.bucket_prefix()
+    counts = (prefix[1:] - prefix[:-1]).numpy()
+    field = (index.brec[:-1, 0].numpy().view(np.uint32)
+             >> np.uint32(32 - pb)).astype(np.int64)
+    assert np.array_equal(field, np.minimum(counts, (1 << pb) - 1))
+    if bits is None:
+        assert pb >= 12 and {0, 1} <= set(counts) and counts.max() > 1
+    elif bits < 9:
+        assert pb == bits and counts.max() >= (1 << pb) - 1
+    else:
+        assert pb == bits and 1 < counts.min() <= counts.max() < (1 << pb) - 1
+    rng = np.random.default_rng(40 + pb)
+    q_value, q_valid = _record_queries(values, reads, rng)
+    gs, ge, hit = _search_records(index, q_value, q_valid)
+    ws, we, whit = _search_prefix(_prefix_layout(index), q_value, q_valid)
+    assert torch.equal(hit, whit) and int(hit.sum()) > len(values) // 2
+    assert torch.equal(gs[hit], ws[hit]) and torch.equal(ge[hit], we[hit])
+    assert int((ge - gs)[~hit].abs().sum()) == 0
+    W = 7
+    for cap in (3, 4096):
+        got = search_scan_plain(index, q_value, q_valid, None, W, cap)
+        over_prefix = search_scan_plain(_prefix_layout(index), q_value,
+                                        q_valid, None, W, cap)
+        for g, w in zip(got, over_prefix):
+            assert (torch.equal(g, w) if torch.is_tensor(g) else g == w)
+        assert got.row.numel() > 0
+    # the whole core against the JAX package's index (its own width)
+    codes, lens = encode_seqs_padded(reads)
+    n = len(reads)
+    m, c = classify_core(index, torch.from_numpy(t2s),
+                         torch.from_numpy(codes), torch.from_numpy(lens),
+                         torch.zeros(n, dtype=torch.int32),
+                         torch.arange(n, dtype=torch.int32), cap=4096)
+    _assert_equal_host(_cols(m), want, c["n_matches"])
+
+
+def test_bucket_records_of_an_empty_table():
+    """An empty reduced table: every record empty, its sentinel at group
+    0, and no query finds a group."""
+    index = build_dev_index(np.zeros(0, np.uint64), np.zeros(0, np.int32),
+                            reduced=True)
+    assert index.n == 0 and index.tword.numel() == 0
+    assert int(index.brec.abs().sum()) == 0
+    rng = np.random.default_rng(2)
+    q_value = torch.from_numpy(rng.integers(0, 1 << 63, 500,
+                                            dtype=np.int64))
+    q_valid = torch.ones(500, dtype=torch.bool)
+    assert not bool(_search_records(index, q_value, q_valid)[2].any())
+    got = search_scan_plain(index, q_value, q_valid, None, 5, 8)
+    assert got.row.numel() == 0 and got.n_over_cap == 0
 
 
 # ------------------------------------------------------ build and classify
