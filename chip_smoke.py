@@ -7,6 +7,11 @@ Phases, one line each; any failure exits non-zero:
   device    the CUDA device, its capability (must be 9.0), and
             nvidia-smi's name and power limit
   build     nvcc builds the kernels, g++ the native host library
+  resources each __global__ function of the library (every template
+            instance) from ptxas (-Xptxas -v, csrc/build.py): its kernel,
+            registers, static shared memory, stack frame and spill stores
+            and loads; fails unless every one of the 16 functions is there
+            and none spills
   probes    the device-cost probes P1-P4 (metabuli_tpu_torch.tools.probes
             in a process of its own; not on the classify path) against
             their plain versions at the profiling scripts' sizes; per
@@ -35,6 +40,16 @@ Phases, one line each; any failure exits non-zero:
             walked again
   parity    one 8,192-read batch classified through the kernels and
             through the plain versions gives identical classification lines
+  checked   in processes of their own with METABULI_TPU_CUDA_CHECKED=1,
+            on the checked library (csrc/check.cuh's bounds checks on, each
+            trapping on an index outside its array): every case of
+            tests/test_torch_kernels.py (the edge shapes; started before
+            the db phase, whose work is on the host, and read after it),
+            and metabuli_tpu_torch.tools.checked, which runs every kernel
+            of KERNELS and P1-P4 once against its plain version at the
+            main path's shapes (the kernels phase's batch, and K2 on its
+            2^28-row table, handed over by tools.checked.save_batch);
+            fails on a trap, any difference or a case that does not pass
   tiny      the two-genome world of .claude/skills/verify/SKILL.md through
             the CLI: all 120 reads classified, the report 50/50
   dbbuild   the port's CLI ``build`` of the skew world as a FASTA library
@@ -160,10 +175,12 @@ and the device record.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -287,6 +304,9 @@ KERNELS = [
     ("extract_aa_kmers_dna", "metabuli_tpu_torch/csrc/aa_kmers.cu",
      "metabuli_tpu/ops/encode.py:377"),
 ]
+# the probes P1-P4 (tools/probes.py)
+KERNEL_PROBES = ("gather_tile_sum", "merge_join_sum", "smoke_double",
+                 "stream_sum")
 # the kernels of the standard alphabet's classify path
 MAIN_KERNELS = ("extract_metamers", "search_scan", "chain_matches",
                 "combine_paths")
@@ -1374,6 +1394,80 @@ def nccl_phase(tmp, fq) -> list:
 
 
 # ------------------------------------------------------------------- main
+def checked_env() -> dict:
+    from metabuli_tpu_torch.csrc import build
+
+    return dict(os.environ, **{build.CHECKED_ENV: "1"})
+
+
+def start_checked_tests(log: str) -> subprocess.Popen:
+    """Every case of tests/test_torch_kernels.py (the edge shapes) on the
+    checked library, in a process of its own (a trap ends the CUDA
+    context), started while the smoke DB is built and written (host
+    work); output to ``log``. Killed at exit if still running."""
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pytest", "-q", "--noconftest",
+             "-p", "no:cacheprovider", "tests/test_torch_kernels.py"],
+            cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT, env=checked_env())
+    atexit.register(lambda: proc.poll() is None and (proc.kill(),
+                                                     proc.wait()))
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def finish_checked_tests(proc: subprocess.Popen, log: str) -> None:
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("checked", "tests/test_torch_kernels.py ran past 600 s")
+    with open(log) as fh:
+        out = fh.read()
+    tail = out.strip().splitlines()[-1:] or [""]
+    counts = {k: int(v) for v, k in
+              re.findall(r"(\d+) (passed|failed|skipped|errors?)", tail[0])}
+    say("checked", edge_cases=tail[0], passed=counts.get("passed", 0),
+        tests_s=round(time.perf_counter() - proc.t0, 3))
+    if proc.returncode != 0 or set(counts) != {"passed"}:
+        sys.stderr.write(out[-6000:])
+        fail("checked", f"tests/test_torch_kernels.py on the checked "
+                        f"library: {tail[0]}")
+
+
+def checked_phase(batch_dir: str) -> None:
+    """tools/checked.py on the checked library, in a process of its own:
+    every kernel once on the kernels phase's batch and table."""
+    t0 = time.perf_counter()
+    ck = subprocess.run([sys.executable, "-m",
+                         "metabuli_tpu_torch.tools.checked", batch_dir],
+                        cwd=ROOT, capture_output=True, text=True,
+                        timeout=600, env=checked_env())
+    sys.stderr.write(ck.stderr[-4000:])
+    try:
+        ck_res = json.loads(ck.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        sys.stderr.write(ck.stdout[-4000:])
+        fail("checked", f"the runner exited {ck.returncode}")
+    for line in ck.stdout.splitlines():
+        if line.startswith("[checked] search_scan"):
+            say("checked", scan=line.split(" ", 1)[1])
+    say("checked", nvcc_s=round(ck_res["nvcc_s"], 3),
+        main_path_checks=ck_res["main_path_checks"],
+        equal=sum(r["equal"] for r in ck_res["records"]),
+        kernels=sorted({r["kernel"] for r in ck_res["records"]}),
+        run_s=round(ck_res["s"], 3),
+        phase_s=round(time.perf_counter() - t0, 3))
+    if ck.returncode != 0 or not ck_res["checked"]:
+        sys.stderr.write(ck.stdout[-4000:])
+        fail("checked", f"the runner exited {ck.returncode}: "
+                        + str([r for r in ck_res["records"]
+                               if not r["equal"]]))
+    missing = ({name for name, _, _ in KERNELS} | set(KERNEL_PROBES)) - {
+        r["kernel"] for r in ck_res["records"]}
+    if missing:
+        fail("checked", f"not run: {sorted(missing)}")
+
+
 def main() -> int:
     # ---- device
     import torch
@@ -1406,6 +1500,24 @@ def main() -> int:
     native.get_lib()
     say("build", nvcc_s=round(t1 - t0, 3),
         gxx_s=round(time.perf_counter() - t1, 3))
+
+    # ---- resources: every __global__ function, from ptxas
+    res = build.resources()
+    for k in res["kernels"]:
+        say("resources", kernel=k["name"], label=k["label"],
+            source=k["source"], registers=k["registers"], smem=k["smem"],
+            stack=k["stack"], spill_stores=k["spill_stores"],
+            spill_loads=k["spill_loads"])
+    functions = {k["kernel"] for k in res["kernels"]}
+    spills = [k["name"] for k in res["kernels"]
+              if k["spill_stores"] or k["spill_loads"]]
+    say("resources", functions=len(functions), compiled=len(res["kernels"]),
+        spilling=len(spills))
+    if functions != set(build.KERNEL_LABELS):
+        fail("resources", f"functions {sorted(functions)}, expected "
+                          f"{sorted(build.KERNEL_LABELS)}")
+    if spills:
+        fail("resources", f"spills in {spills}")
 
     # ---- probes (not on the classify path), in a process of their own:
     # with their torch.profiler traces taken in this process, the first
@@ -1443,10 +1555,14 @@ def main() -> int:
     if pr.returncode != 0:
         fail("probes", f"the runner exited {pr.returncode}")
 
-    from metabuli_tpu_torch.tools import world
+    from metabuli_tpu_torch.tools import checked, world
 
     tmp = tempfile.mkdtemp(prefix="metabuli_smoke_")
     try:
+        # ---- checked, the edge shapes, beside the db phase's host work
+        tests_log = os.path.join(tmp, "checked_tests.log")
+        tests = start_checked_tests(tests_log)
+
         # ---- db
         tax, genomes, rng = world.make_world(tmp, "skew")
         db = os.path.join(tmp, "db")
@@ -1457,6 +1573,7 @@ def main() -> int:
         reads = world.sample_reads(genomes, rng, 65_536, 150, max_mut=2)
         fq = os.path.join(tmp, "reads.fq")
         world.write_fastq(fq, reads)
+        finish_checked_tests(tests, tests_log)
 
         # ---- kernels + parity (one classifier, one 8,192-read batch)
         par = ClassifyParams(seq_mode=1, batch_reads=8192)
@@ -1473,8 +1590,13 @@ def main() -> int:
             ("build_blocks", build_block_batch(tax, genomes[:8], dev)),
             ("long_row", long_row)])
         parity(clf, metas, rows, resident, "parity")
+        checked_dir = os.path.join(tmp, "checked")
+        checked.save_batch(checked_dir, clf, metas, rows)
         del clf
         torch.cuda.empty_cache()
+
+        # ---- checked: every kernel once at the main path's shapes
+        checked_phase(checked_dir)
 
         # ---- tiny: the verify skill's two-genome world
         trng = np.random.default_rng(3)

@@ -166,7 +166,8 @@ def combine_paths(sp: FlatPaths, group_start: torch.Tensor,
         G, group_start.data_ptr(), sp.read.data_ptr(), sp.start.data_ptr(),
         sp.end.data_ptr(), sp.score.data_ptr(), sp.sh16.data_ptr(),
         sp.eh16.data_ptr(), read_lens.data_ptr(), read_lens.numel(),
-        buf.data_ptr() + 4 * off, out.data_ptr(), build.stream(dev))
+        sp.read.numel(), buf.data_ptr() + 4 * off, out.data_ptr(),
+        build.stream(dev))
     build.check(rc, "combine_paths")
     build.launches["combine_paths"] += 1
     return out

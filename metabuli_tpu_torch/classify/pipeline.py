@@ -504,6 +504,7 @@ def search_scan(index: DevIndex, q_value: torch.Tensor,
         t_word.data_ptr(), index.prefix_bits, cap, start.data_ptr(),
         wlen.data_ptr(), cut.data_ptr(), acc.data_ptr(),
         stash.data_ptr(), n_stash, top.data_ptr(), wstash.data_ptr(), *lut,
+        index.grest.numel(), t_word.numel(), buckets.shape[0],
         index.kmer_format, st)
     build.check(rc, name)
     build.launches[name] += 1
@@ -516,7 +517,7 @@ def search_scan(index: DevIndex, q_value: torch.Tensor,
             start.data_ptr(), wlen.data_ptr(), cut.data_ptr(),
             scan.data_ptr(), stash.data_ptr(), wstash.data_ptr(),
             row.data_ptr(), slot.data_ptr(), pay.data_ptr(), *lut,
-            index.kmer_format, st)
+            n_stash, t_word.numel(), total, index.kmer_format, st)
         build.check(rc, name)
     return Candidates(row, slot, pay, with_over - total,
                       with_rewalk - with_over)

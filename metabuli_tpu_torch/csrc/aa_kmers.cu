@@ -50,6 +50,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "check.cuh"
+
 namespace {
 
 constexpr int KMAX = 32;  // largest k
@@ -182,6 +184,8 @@ aa_kmers_kernel(const uint8_t* __restrict__ codes,
     *w0 = (int)(item - b * chunks) * TILE;
     *n_res = min(TILE, W - *w0) + k - 1;
     *p = codes + b * L + *w0;
+    MTB_CHECK(b * L + *w0 + *n_res <= (int64_t)B * L,
+              b * L + *w0 + *n_res, (int64_t)B * L);
   };
   int64_t item = (int64_t)blockIdx.x * WARPS + wid;
   uint4 pf = make_uint4(0, 0, 0, 0);
@@ -231,6 +235,7 @@ aa_kmers_kernel(const uint8_t* __restrict__ codes,
     }
 
     const int64_t g = b * W + w0;
+    MTB_CHECK(g + cw <= (int64_t)B * W, g + cw, (int64_t)B * W);
     const int ov = stage_at(value + g), op = stage_at(pos + g),
               oo = stage_at(valid + g);
     const int j0 = lane * RUN, j1 = min(j0 + RUN, cw);
@@ -317,6 +322,7 @@ aa_kmers_dna_warp_kernel(const uint8_t* __restrict__ codes,
   for (; b < B; b += stride) {
     const uint8_t* row = codes + (int64_t)b * L;
     const int len = pf_len;
+    MTB_CHECK(0 <= len && len <= L, len, L);  // it sets the bases read
     *reinterpret_cast<uint4*>(raw + 16 * lane) = pf;
     if (b + stride < B) {  // the next row's bases, in flight
       pf = load_span(row + (int64_t)stride * L, n_load, lane);
@@ -363,6 +369,8 @@ aa_kmers_dna_warp_kernel(const uint8_t* __restrict__ codes,
       const int t1 = fl * W + min(W, (min(r0 + 31, 6 * rpf - 1) - fl * rpf
                                       + 1) * RUN);
       const int64_t g = (int64_t)b * slots + t0;
+      MTB_CHECK(g + t1 - t0 <= (int64_t)B * slots, g + t1 - t0,
+                (int64_t)B * slots);
       const int ov = stage_at(value + g), op = stage_at(pos + g),
                 oo = stage_at(valid + g);
       const int run = r0 + lane, f = run / rpf;
@@ -404,7 +412,7 @@ aa_kmers_dna_kernel(const uint8_t* __restrict__ codes,
                     const int32_t* __restrict__ lens, int L, int W,
                     int chunks, int k, const int32_t* __restrict__ aa_tab,
                     int64_t* __restrict__ value, int32_t* __restrict__ pos,
-                    uint8_t* __restrict__ valid) {
+                    uint8_t* __restrict__ valid, int64_t n_out) {
   __shared__ uint8_t s_fwd[BASES + 2];  // bases of the forward frames
   __shared__ uint8_t s_rev[BASES + 2];  // bases of the reverse frames
   __shared__ int8_t s_tab[64];
@@ -412,6 +420,7 @@ aa_kmers_dna_kernel(const uint8_t* __restrict__ codes,
   const unsigned chunk = blockIdx.x % (unsigned)chunks;
   const int b = (int)(blockIdx.x / (unsigned)chunks);
   const int len = lens[b];
+  MTB_CHECK(0 <= len && len <= L, len, L);  // it sets the bases read
   const int used = used_bases(len);
   const int aa_len = used / 3;
   if (aa_len <= AMAX) return;  // the warp kernel's row
@@ -473,6 +482,7 @@ aa_kmers_dna_kernel(const uint8_t* __restrict__ codes,
       p = begin + used - 1 - 3 * (w + k) + 1;
     }
     const int64_t t = ((int64_t)b * 6 + f) * W + w;
+    MTB_CHECK_INDEX(t, n_out);
     value[t] = (int64_t)v;
     pos[t] = p;
     valid[t] = ok;
@@ -507,7 +517,8 @@ extern "C" int mtb_extract_aa_kmers_dna(const uint8_t* codes,
                                         const int32_t* lens, int B, int L,
                                         int W, int k, const int32_t* aa_tab,
                                         int64_t* value, int32_t* pos,
-                                        bool* valid, cudaStream_t stream) {
+                                        bool* valid, int64_t n_out,
+                                        cudaStream_t stream) {
   if (bad_args(B, W, k, 1) || W != (L - 2) / 3 - k + 1)
     return (int)cudaErrorInvalidValue;
   uint8_t* ok = reinterpret_cast<uint8_t*>(valid);
@@ -520,6 +531,6 @@ extern "C" int mtb_extract_aa_kmers_dna(const uint8_t* codes,
   const int chunks = (W + CHUNK - 1) / CHUNK;
   if ((int64_t)B * chunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   aa_kmers_dna_kernel<<<(unsigned)(B * chunks), THREADS, 0, stream>>>(
-      codes, lens, L, W, chunks, k, aa_tab, value, pos, ok);
+      codes, lens, L, W, chunks, k, aa_tab, value, pos, ok, n_out);
   return (int)cudaGetLastError();
 }

@@ -58,6 +58,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "check.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -136,25 +138,31 @@ struct Tile {
   Rows& s;
   Matches in;
   Paths out;
+  int M;  // rows: a row read or written by index is checked against it
 
   __device__ State get(int b, int k, int r) const {
     if (k < 32)
       return {s.score[b][k], s.start[b][k], s.ham[b][k], s.depth[b][k],
               s.sh16[b][k]};
+    MTB_CHECK_INDEX(r, M);
     return {out.score[r], out.start[r], out.ham[r], out.depth[r],
             out.sh16[r]};
   }
   __device__ float score(int b, int k, int r) const {
+    MTB_CHECK(k < 32 || (0 <= r && r < M), r, M);
     return k < 32 ? s.score[b][k] : out.score[r];
   }
   __device__ int depth(int b, int k, int r) const {
+    MTB_CHECK(k < 32 || (0 <= r && r < M), r, M);
     return k < 32 ? s.depth[b][k] : out.depth[r];
   }
   __device__ int dna(int b, int k, int r) const {
+    MTB_CHECK(k < 32 || (0 <= r && r < M), r, M);
     return k < 32 ? s.dna[b][k] : in.dna[r];
   }
   // the path ending at row r, the k-th of the tile
   __device__ void put(int k, int r, const State& v) const {
+    MTB_CHECK_INDEX(r, M);
     out.score[r] = v.score;
     out.start[r] = v.start;
     out.ham[r] = v.ham;
@@ -171,9 +179,11 @@ struct Tile {
     }
   }
   __device__ void connect(int b, int k, int r) const {
+    MTB_CHECK(k < 32 || (0 <= r && r < M), r, M);
     if (k < 32) atomicOr(&s.conn[b], 1u << k); else out.emit[r] = true;
   }
   __device__ bool connected(int b, int k, int r) const {
+    MTB_CHECK(k < 32 || (0 <= r && r < M), r, M);
     return k < 32 ? (s.conn[b] >> k) & 1 : out.emit[r];
   }
 };
@@ -182,6 +192,7 @@ struct Tile {
 // with_q, position quotient differs from row s's
 __device__ int run_end(const Matches& in, int s, bool with_q, int from,
                        int end, int lane) {
+  MTB_CHECK(0 <= s && s < end, s, end);
   int q = in.qid[s], sp = in.species[s], fr = in.frame[s];
   int pq = in.pos[s] / 3;
   for (int r0 = from; r0 < end; r0 += 32) {
@@ -222,7 +233,7 @@ chain_kernel(int M, Matches in, const int32_t* __restrict__ min_depth,
   const int end = run_end(in, last, false, base + kWindow, M, lane);
 
   Rows& sr = s_rows[wid];
-  Tile t{sr, in, out};
+  Tile t{sr, in, out, M};
   if (lane == 0) sr.conn[0] = sr.conn[1] = 0;
   // the carried group: rows [c_row, c_row + c_n), c_n = 0 before the first
   int c_row = 0, c_n = 0, c_q = 0, c_qid = 0, c_sp = 0, c_fr = 0;
@@ -282,6 +293,7 @@ chain_kernel(int M, Matches in, const int32_t* __restrict__ min_depth,
     const int g0 = 31 - __clz(ngm & le);      // this row's group's first lane
     const int lg0 = 31 - __clz(ngm);          // the tile's last group's
     const bool first_grp = (nbm >> g0) & 1;   // the group opens its block
+    MTB_CHECK(sp >= 0 && n_species > 0, sp, n_species);
     const int min_d = min_depth[sp < n_species - 1 ? sp : n_species - 1];
     const bool fwd = (fr < 3) != (kmer_format != 2);
     if (lane < n) sr.dna[1][lane] = dna;
@@ -382,6 +394,7 @@ chain_kernel(int M, Matches in, const int32_t* __restrict__ min_depth,
           int mj = __shfl_sync(kFull, ham, src);
           if (lane < cw) {
             if (k >= 32) {
+              MTB_CHECK_INDEX(a + k, M);
               hj = in.h16[a + k];
               pj = in.pos[a + k];
               mj = in.ham[a + k];
@@ -409,6 +422,7 @@ chain_kernel(int M, Matches in, const int32_t* __restrict__ min_depth,
       for (int k = lane; k < c_n; k += 32) {
         int rr = c_row + k;
         int d = t.depth(0, k, rr);
+        MTB_CHECK_INDEX(rr, M);
         out.emit[rr] = d >= c_min_d && (cont ? !t.connected(0, k, rr)
                                              : !c_first);
       }
@@ -455,6 +469,7 @@ chain_kernel(int M, Matches in, const int32_t* __restrict__ min_depth,
   // the last carried group ends its block
   for (int k = lane; k < c_n; k += 32) {
     int rr = c_row + k;
+    MTB_CHECK_INDEX(rr, M);
     out.emit[rr] = !c_first && t.depth(0, k, rr) >= c_min_d;
   }
 }

@@ -27,6 +27,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "check.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -49,10 +51,13 @@ combine_kernel(int n_groups, const int32_t* __restrict__ gstart,
                const int32_t* __restrict__ sh16,
                const int32_t* __restrict__ eh16,
                const int32_t* __restrict__ read_lens, int n_reads,
-               int2* __restrict__ accepted, float* __restrict__ out) {
+               int n_paths, int2* __restrict__ accepted,
+               float* __restrict__ out) {
   const int g = blockIdx.x * THREADS + threadIdx.x;
   if (g >= n_groups) return;
   const int s = gstart[g], e = gstart[g + 1];
+  // the group's paths, and so its rows of accepted extents
+  MTB_CHECK(0 <= s && s <= e && e <= n_paths, e, n_paths);
   int2* const acc = accepted + s;  // the group's rows
   int n_acc = 0;
   float total = 0.0f;
@@ -80,8 +85,10 @@ combine_kernel(int n_groups, const int32_t* __restrict__ gstart,
       total = total + sc;
     }
   }
+  MTB_CHECK_INDEX(s, n_paths);  // the group's head path
   int r = read[s];
   r = r < 0 ? 0 : (r > n_reads - 1 ? n_reads - 1 : r);
+  MTB_CHECK_INDEX(r, n_reads);
   const int rl = read_lens[r] > 1 ? read_lens[r] : 1;
   const float v = total / (float)rl;
   out[g] = v < 1.0f ? v : 1.0f;
@@ -94,11 +101,11 @@ extern "C" int mtb_combine_paths(int n_groups, const int32_t* group_start,
                                  const int32_t* end, const float* score,
                                  const int32_t* sh16, const int32_t* eh16,
                                  const int32_t* read_lens, int n_reads,
-                                 int2* accepted, float* out,
+                                 int n_paths, int2* accepted, float* out,
                                  cudaStream_t stream) {
   const int blocks = (n_groups + THREADS - 1) / THREADS;
   combine_kernel<<<blocks, THREADS, 0, stream>>>(
       n_groups, group_start, read, start, end, score, sh16, eh16, read_lens,
-      n_reads, accepted, out);
+      n_reads, n_paths, accepted, out);
   return (int)cudaGetLastError();
 }

@@ -46,6 +46,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "check.cuh"
+
 namespace {
 
 constexpr int K = 8;            // codons per metamer
@@ -65,7 +67,8 @@ extract_kernel(const uint8_t* __restrict__ codes,
                const int32_t* __restrict__ aa_tab,
                const int32_t* __restrict__ num_tab,
                int64_t* __restrict__ value, int32_t* __restrict__ pos,
-               bool* __restrict__ valid, int64_t* __restrict__ dna48) {
+               bool* __restrict__ valid, int64_t* __restrict__ dna48,
+               int64_t n_codes, int64_t n_out) {
   __shared__ uint32_t s_words[WORDS];
   constexpr int AA_BITS = Reduced ? 4 : 5;
   constexpr int NUM_BITS = Reduced ? 4 : 3;
@@ -87,8 +90,14 @@ extract_kernel(const uint8_t* __restrict__ codes,
   const uint8_t* first = codes + (int64_t)b * L + base0;
   const int shift = (int)((uintptr_t)first & 3);
   const uint32_t* words = (const uint32_t*)(first - shift);
-  for (int i = tid; i < (shift + nb + 3) / 4; i += THREADS)
+  // each aligned word holds a byte of the batch (n_codes bytes); its
+  // other bytes are not used
+  for (int i = tid; i < (shift + nb + 3) / 4; i += THREADS) {
+    MTB_CHECK((first - shift - codes) + 4 * (int64_t)i > -4 &&
+                  (first - shift - codes) + 4 * (int64_t)i < n_codes,
+              (first - shift - codes) + 4 * (int64_t)i, n_codes);
     s_words[i] = words[i];
+  }
   if (tid < 64) s_tab[tid] = (uint16_t)(aa_tab[tid] << 4 | num_tab[tid]);
   __syncthreads();
   const uint8_t* base = (const uint8_t*)s_words + shift;
@@ -166,6 +175,7 @@ extract_kernel(const uint8_t* __restrict__ codes,
     const int w = w0 + wl;
     const int begin = f < 3 ? f : ((len % 3) - (f - 3) + 3) % 3;
     const int64_t t = ((int64_t)b * 6 + f) * W + w;
+    MTB_CHECK_INDEX(t, n_out);
     value[t] = ok ? (int64_t)(aa_part << 8 * NUM_BITS | dna_part) : 0;
     if (!Reduced) dna48[t] = ok ? (int64_t)d48 : 0;
     pos[t] = (int32_t)(begin + 3 * (int64_t)w);
@@ -177,7 +187,8 @@ template <bool Reduced>
 int launch(const uint8_t* codes, const int32_t* lens, int B, int L, int W,
            int syncmer, int smer_len, const int32_t* aa_tab,
            const int32_t* num_tab, int64_t* value, int32_t* pos, bool* valid,
-           int64_t* dna48, int kmer_format, cudaStream_t stream) {
+           int64_t* dna48, int64_t n_codes, int64_t n_out, int kmer_format,
+           cudaStream_t stream) {
   const int chunks = (W + CHUNK - 1) / CHUNK;
   const int64_t ctas = (int64_t)B * chunks;  // grid x holds up to 2^31 - 1
   if (B < 1 || W < 1 || ctas > 0x7fffffff || smer_len < 1 || smer_len > K ||
@@ -186,11 +197,11 @@ int launch(const uint8_t* codes, const int32_t* lens, int B, int L, int W,
   if (kmer_format == 2)
     extract_kernel<Reduced, false><<<(unsigned)ctas, THREADS, 0, stream>>>(
         codes, lens, L, W, chunks, syncmer, smer_len, aa_tab, num_tab, value,
-        pos, valid, dna48);
+        pos, valid, dna48, n_codes, n_out);
   else
     extract_kernel<Reduced, true><<<(unsigned)ctas, THREADS, 0, stream>>>(
         codes, lens, L, W, chunks, syncmer, smer_len, aa_tab, num_tab, value,
-        pos, valid, dna48);
+        pos, valid, dna48, n_codes, n_out);
   return (int)cudaGetLastError();
 }
 
@@ -202,10 +213,11 @@ extern "C" int mtb_extract_metamers(const uint8_t* codes, const int32_t* lens,
                                     int smer_len, const int32_t* aa_tab,
                                     const int32_t* num_tab, int64_t* value,
                                     int32_t* pos, bool* valid, int64_t* dna48,
+                                    int64_t n_codes, int64_t n_out,
                                     int kmer_format, cudaStream_t stream) {
   return launch<false>(codes, lens, B, L, W, syncmer, smer_len, aa_tab,
-                       num_tab, value, pos, valid, dna48, kmer_format,
-                       stream);
+                       num_tab, value, pos, valid, dna48, n_codes, n_out,
+                       kmer_format, stream);
 }
 
 // the reduced alphabet: dna48 is not written (may be null)
@@ -213,7 +225,8 @@ extern "C" int mtb_extract_metamers_reduced(
     const uint8_t* codes, const int32_t* lens, int B, int L, int W,
     int syncmer, int smer_len, const int32_t* aa_tab, const int32_t* num_tab,
     int64_t* value, int32_t* pos, bool* valid, int64_t* dna48,
-    int kmer_format, cudaStream_t stream) {
+    int64_t n_codes, int64_t n_out, int kmer_format, cudaStream_t stream) {
   return launch<true>(codes, lens, B, L, W, syncmer, smer_len, aa_tab,
-                      num_tab, value, pos, valid, dna48, kmer_format, stream);
+                      num_tab, value, pos, valid, dna48, n_codes, n_out,
+                      kmer_format, stream);
 }

@@ -77,6 +77,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "check.cuh"
+
 namespace {
 
 // sum over the block; the result is valid in thread 0
@@ -166,6 +168,7 @@ __device__ uint32_t sum_partial[SUM_MAX_CTAS];
 __device__ void finish_sum(uint32_t acc, int32_t* out) {
   __shared__ bool last;
   if (threadIdx.x == 0) {
+    MTB_CHECK_INDEX((int)blockIdx.x, SUM_MAX_CTAS);
     sum_partial[blockIdx.x] = acc;
     __threadfence();  // the partial is visible before the ticket is taken
     last = atomicInc(&sum_ticket, gridDim.x - 1) == gridDim.x - 1;
@@ -215,6 +218,7 @@ stream_sum_kernel(const int4* __restrict__ vec, int64_t n_vec,
         const int64_t v0 = (blockIdx.x + k * gridDim.x) * SUM_CHUNK_VEC;
         const uint32_t bytes =
             (uint32_t)(min((int64_t)SUM_CHUNK_VEC, n_vec - v0) * 16);
+        MTB_CHECK(v0 + bytes / 16 <= n_vec, v0 + bytes / 16, n_vec);
         asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                      :: "r"(smem_addr(&full[s])), "r"(bytes) : "memory");
         asm volatile(
@@ -387,14 +391,20 @@ partition_count_kernel(const int32_t* __restrict__ slots, int64_t n,
     out[i] = 0;
   if (n_tiles > LOCAL_TILES) {
     for_each_slot(slots, n, [&](int32_t s) {
-      if (in_table(s, n_table)) add_one<false>(counts, s >> TILE_SHIFT);
+      if (in_table(s, n_table)) {
+        MTB_CHECK_INDEX(s >> TILE_SHIFT, n_tiles);
+        add_one<false>(counts, s >> TILE_SHIFT);
+      }
     });
     return;
   }
   for (int i = threadIdx.x; i < n_tiles; i += blockDim.x) local[i] = 0;
   __syncthreads();
   for_each_slot(slots, n, [&](int32_t s) {
-    if (in_table(s, n_table)) add_one<false>(local, s >> TILE_SHIFT);
+    if (in_table(s, n_table)) {
+      MTB_CHECK_INDEX(s >> TILE_SHIFT, n_tiles);
+      add_one<false>(local, s >> TILE_SHIFT);
+    }
   });
   __syncthreads();
   for (int i = threadIdx.x; i < n_tiles; i += blockDim.x)
@@ -498,7 +508,12 @@ partition_scatter_kernel(const int32_t* __restrict__ slots, int64_t n,
                          int32_t* __restrict__ part) {
   if (n_tiles > LOCAL_TILES) {
     for_each_slot(slots, n, [&](int32_t s) {
-      if (in_table(s, n_table)) part[add_one<true>(cursor, s >> TILE_SHIFT)] = s;
+      if (in_table(s, n_table)) {
+        MTB_CHECK_INDEX(s >> TILE_SHIFT, n_tiles);
+        const uint32_t at = add_one<true>(cursor, s >> TILE_SHIFT);
+        MTB_CHECK_INDEX((int64_t)at, n);
+        part[at] = s;
+      }
     });
     return;
   }
@@ -523,8 +538,10 @@ partition_scatter_kernel(const int32_t* __restrict__ slots, int64_t n,
     }
 #pragma unroll
     for (int k = 0; k < PER; ++k)
-      if (in_table(q[k], n_table))
+      if (in_table(q[k], n_table)) {
+        MTB_CHECK_INDEX(q[k] >> TILE_SHIFT, n_tiles);
         rank[k] = add_one<true>(count, padded(q[k] >> TILE_SHIFT));
+      }
     __syncthreads();
     // exclusive scan of the counts: thread t takes tiles
     // [t * per_thread, (t + 1) * per_thread)
@@ -563,6 +580,8 @@ partition_scatter_kernel(const int32_t* __restrict__ slots, int64_t n,
     __syncthreads();
     for (int i = threadIdx.x; i < (int)total; i += PART_THREADS) {
       const int32_t s = staged[i];
+      MTB_CHECK_INDEX((int64_t)(uint32_t)(base[padded(s >> TILE_SHIFT)] + i),
+                      n);
       part[base[padded(s >> TILE_SHIFT)] + i] = s;
     }
     __syncthreads();  // count, base and staged are read before reuse
@@ -587,7 +606,7 @@ __global__ void __launch_bounds__(JOIN_THREADS)
 merge_join_kernel(const int32_t* __restrict__ table,
                   const int32_t* __restrict__ part,
                   const uint32_t* __restrict__ cursor, int n_tiles,
-                  const uint32_t* __restrict__ extra,
+                  const uint32_t* __restrict__ extra, int64_t n,
                   unsigned long long* __restrict__ out) {
   __shared__ __align__(128) int32_t tile[TILE_T];
   __shared__ __align__(8) uint64_t full;
@@ -603,10 +622,12 @@ merge_join_kernel(const int32_t* __restrict__ table,
     }
     it = make_int2(lo, (int)(k - extra[lo]) + 1);
   }
+  MTB_CHECK_INDEX(it.x, n_tiles);
   const uint32_t end = cursor[it.x], start = it.x ? cursor[it.x - 1] : 0;
   const int lo = (int)(start + (uint32_t)it.y * JOIN_MAXQ);
   if (lo >= (int)end) return;
   const int hi = min((int)end, lo + JOIN_MAXQ);
+  MTB_CHECK(0 <= lo && hi <= n, hi, n);  // the tile's queries in part
   const int32_t* src = table + (int64_t)it.x * TILE_T;
   const bool tma = (reinterpret_cast<uintptr_t>(table) & 15) == 0;
   if (tma && threadIdx.x == 0) {
@@ -641,7 +662,10 @@ merge_join_kernel(const int32_t* __restrict__ table,
   const int32_t base = it.x * TILE_T;
   uint32_t acc = 0;
   auto look = [&](int32_t s) {
-    if (s >= 0) acc += (uint32_t)(tile[s - base] & 0xFFFF);
+    if (s >= 0) {
+      MTB_CHECK_INDEX(s - base, TILE_T);
+      acc += (uint32_t)(tile[s - base] & 0xFFFF);
+    }
   };
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
@@ -729,7 +753,8 @@ extern "C" int mtb_probe_merge_join_sum(const int32_t* table,
                                        part);
   // every further piece holds JOIN_MAXQ queries at least
   merge_join_kernel<<<(unsigned)(n_tiles + n / JOIN_MAXQ + 1), JOIN_THREADS,
-                      0, stream>>>(table, part, cursor, n_tiles, extra, sums);
+                      0, stream>>>(table, part, cursor, n_tiles, extra, n,
+                                   sums);
   return (int)cudaGetLastError();
 }
 

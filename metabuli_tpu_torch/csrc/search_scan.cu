@@ -89,6 +89,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "check.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -241,18 +243,20 @@ __device__ __forceinline__ void stage_lut(uint8_t* s_lut,
 __device__ __forceinline__ bool find_reduced(
     uint64_t value, const int4* __restrict__ rec,
     const int32_t* __restrict__ grest, const int32_t* __restrict__ gstart,
-    const int32_t* __restrict__ gend, int prefix_bits, int32_t* gs,
-    int32_t* n_rows) {
+    const int32_t* __restrict__ gend, int prefix_bits, int64_t n_groups,
+    int64_t rows, int64_t n_buckets, int32_t* gs, int32_t* n_rows) {
   const int rb = 32 - prefix_bits;  // 1 <= prefix_bits <= 31
   const uint32_t pi = (uint32_t)((value >> 32) * kPermMult);
   const uint32_t rest_mask = (uint32_t)((1ull << rb) - 1);
   const int32_t rest = (int32_t)(pi & rest_mask);
   const uint32_t bucket = (uint32_t)((uint64_t)pi >> rb);
+  MTB_CHECK_INDEX((int64_t)bucket + 1, n_buckets);  // and the next
   const int4 r = rec[bucket];
   const uint32_t n = (uint32_t)((uint64_t)(uint32_t)r.x >> rb);
   const int32_t rest0 = (int32_t)((uint32_t)r.x & rest_mask);
   if (n == 0 || rest < rest0) return false;
   if (rest == rest0) {
+    MTB_CHECK(0 <= r.y && r.y <= r.z && r.z <= rows, r.z, rows);
     *gs = r.y;
     *n_rows = r.z - r.y;
     return true;
@@ -262,6 +266,8 @@ __device__ __forceinline__ bool find_reduced(
                           ? rec[bucket + 1].w
                           : r.w + (int32_t)n;
   int32_t hi = end;
+  // the lower bound's steps and the group found lie in [lo, end)
+  MTB_CHECK(0 < lo && lo <= end && end <= n_groups, end, n_groups);
   while (lo < hi) {
     int32_t mid = (lo + hi) >> 1;
     if (grest[mid] < rest) lo = mid + 1; else hi = mid;
@@ -269,6 +275,8 @@ __device__ __forceinline__ bool find_reduced(
   if (lo < end && grest[lo] == rest) {
     *gs = gstart[lo];
     *n_rows = gend[lo] - *gs;
+    MTB_CHECK(0 <= *gs && *n_rows >= 0 && *gs + (int64_t)*n_rows <= rows,
+              *gs + (int64_t)*n_rows, rows);
     return true;
   }
   return false;
@@ -291,7 +299,8 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
              int2* __restrict__ stash, int64_t stash_cap,
              unsigned long long* __restrict__ stash_top,
              int64_t* __restrict__ wstash,
-             const int32_t* __restrict__ lut, bool old_format) {
+             const int32_t* __restrict__ lut, int64_t n_groups,
+             int64_t n_rows, int64_t n_buckets, bool old_format) {
   __shared__ int s_min[kThreads];
   __shared__ uint8_t s_lut[Reduced ? 256 : 1];
   stage_lut<Reduced>(s_lut, lut);
@@ -313,7 +322,8 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
       if constexpr (Reduced) {
         int32_t n;
         if (find_reduced((uint64_t)value[s], rec, grest, gstart, gend,
-                         prefix_bits, &gs, &n)) {
+                         prefix_bits, n_groups, n_rows, n_buckets, &gs,
+                         &n)) {
           over = n > cap;
           len = over ? cap : n;
         }
@@ -323,8 +333,11 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
         uint64_t pi = (((uint64_t)value[s] >> 24) * kPermMult) & kMask40;
         int32_t rest = (int32_t)(pi & ((1ull << rb) - 1));
         int64_t bucket = (int64_t)(pi >> rb);
+        MTB_CHECK_INDEX(bucket + 1, n_buckets);  // and the next
         int32_t lo = prefix[bucket], hi = prefix[bucket + 1];
         int32_t end = hi;
+        // the lower bound's steps and the group found lie in [lo, hi)
+        MTB_CHECK(0 <= lo && lo <= hi && hi <= n_groups, hi, n_groups);
         while (lo < hi) {
           int32_t mid = (lo + hi) >> 1;
           if (grest[mid] < rest) lo = mid + 1; else hi = mid;
@@ -332,6 +345,9 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
         if (lo < end && grest[lo] == rest) {
           gs = gstart[lo];
           int32_t n = gend[lo] - gs;
+          // the group's rows, and so every row of its window
+          MTB_CHECK(0 <= gs && n >= 0 && gs + (int64_t)n <= n_rows,
+                    gs + (int64_t)n, n_rows);
           over = n > cap;
           len = over ? cap : n;
         }
@@ -367,9 +383,11 @@ count_kernel(const int64_t* __restrict__ value, const bool* __restrict__ valid,
   long long kept = walk_kept<Reduced>(
       fw, lane, len, gs, q, frame, c, d48, s_lut, old_format,
       [&](const Pair& p, long long at) {
-        if (base >= 0)
+        if (base >= 0) {
+          MTB_CHECK_INDEX(base + at, stash_cap);
           stash[base + at] = make_int2(
               p.row, (p.j << 22) | (p.h16 << 6) | (p.h << 3) | p.frame);
+        }
       });
   if (s < Q && base < 0) {  // what the write launch's second walk reads
     start[s] = gs;
@@ -400,7 +418,8 @@ write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
              const int64_t* __restrict__ wstash,
              int32_t* __restrict__ out_row, int32_t* __restrict__ out_slot,
              int32_t* __restrict__ out_pay,
-             const int32_t* __restrict__ lut, bool old_format) {
+             const int32_t* __restrict__ lut, int64_t stash_cap,
+             int64_t n_rows, int64_t n_out, bool old_format) {
   __shared__ uint8_t s_lut[Reduced ? 256 : 1];
   stage_lut<Reduced>(s_lut, lut);
   int lane = threadIdx.x & 31;
@@ -410,7 +429,12 @@ write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
   int64_t w = s0 >> 5;
   long long o = w ? scan[w - 1] : 0;  // kept pairs of earlier warps
   long long n_keep = scan[w] - o;
+  // the warp's output rows
+  MTB_CHECK(0 <= o && 0 <= n_keep && o + n_keep <= n_out, o + n_keep,
+            n_out);
   if (wstash[w] >= 0) {  // the count launch stashed them
+    MTB_CHECK(wstash[w] + n_keep <= stash_cap, wstash[w] + n_keep,
+              stash_cap);
     const int2* mine = stash + wstash[w];
     for (long long i = lane; i < n_keep; i += 32) {
       int2 v = mine[i];
@@ -429,12 +453,16 @@ write_kernel(const int64_t* __restrict__ qd48, int64_t Q, int W,
     c = cut[s];
     q = Reduced ? (uint64_t)qd48[s] & 0xFFFFFFFFull : (uint64_t)qd48[s];
     frame = (int)((s / W) % 6);
+    // the slot's window, every row of which the walk scores
+    MTB_CHECK(0 <= gs && 0 <= len && gs + (int64_t)len <= n_rows,
+              gs + (int64_t)len, n_rows);
   }
   FlatWindows fw;
   fw.incl = warp_inclusive_sum(len, lane);
   fw.total = __shfl_sync(kFull, fw.incl, 31);
   walk_kept<Reduced>(fw, lane, len, gs, q, frame, c, d48, s_lut, old_format,
             [&](const Pair& p, long long at) {
+              MTB_CHECK_INDEX(o + at, n_out);
               out_row[o + at] = p.row;
               out_slot[o + at] = (int32_t)(s0 + p.j);
               out_pay[o + at] = (p.h16 << 6) | (p.h << 3) | p.frame;
@@ -448,7 +476,8 @@ int count(const int64_t* value, const bool* valid, const int64_t* qd48,
           const Word<Reduced>* d48, int prefix_bits, int cap, int32_t* start,
           int32_t* wlen, int32_t* cut, int64_t* acc, int2* stash,
           int64_t stash_cap, unsigned long long* stash_top, int64_t* wstash,
-          const int32_t* lut, int kmer_format, cudaStream_t stream) {
+          const int32_t* lut, int64_t n_groups, int64_t n_rows,
+          int64_t n_buckets, int kmer_format, cudaStream_t stream) {
   if (kmer_format != 1 && kmer_format != 2) return (int)cudaErrorInvalidValue;
   if (Reduced && (prefix_bits < 1 || prefix_bits > 31))
     return (int)cudaErrorInvalidValue;
@@ -456,7 +485,7 @@ int count(const int64_t* value, const bool* valid, const int64_t* qd48,
   count_kernel<Reduced><<<(unsigned)blocks, kThreads, 0, stream>>>(
       value, valid, qd48, Q, W, grest, gstart, gend, prefix, rec, d48,
       prefix_bits, cap, start, wlen, cut, acc, stash, stash_cap, stash_top,
-      wstash, lut, kmer_format == 1);
+      wstash, lut, n_groups, n_rows, n_buckets, kmer_format == 1);
   return (int)cudaGetLastError();
 }
 
@@ -465,12 +494,13 @@ int write(const int64_t* qd48, int64_t Q, int W, const Word<Reduced>* d48,
           const int32_t* start, const int32_t* wlen, const int32_t* cut,
           const int64_t* scan, const int2* stash, const int64_t* wstash,
           int32_t* out_row, int32_t* out_slot, int32_t* out_pay,
-          const int32_t* lut, int kmer_format, cudaStream_t stream) {
+          const int32_t* lut, int64_t stash_cap, int64_t n_rows,
+          int64_t n_out, int kmer_format, cudaStream_t stream) {
   if (kmer_format != 1 && kmer_format != 2) return (int)cudaErrorInvalidValue;
   int64_t blocks = (Q + kThreads - 1) / kThreads;
   write_kernel<Reduced><<<(unsigned)blocks, kThreads, 0, stream>>>(
       qd48, Q, W, d48, start, wlen, cut, scan, stash, wstash, out_row,
-      out_slot, out_pay, lut, kmer_format == 1);
+      out_slot, out_pay, lut, stash_cap, n_rows, n_out, kmer_format == 1);
   return (int)cudaGetLastError();
 }
 
@@ -484,11 +514,13 @@ extern "C" int mtb_search_count(const int64_t* value, const bool* valid,
                                 int32_t* start, int32_t* wlen, int32_t* cut,
                                 int64_t* acc, int2* stash, int64_t stash_cap,
                                 unsigned long long* stash_top, int64_t* wstash,
-                                int kmer_format, cudaStream_t stream) {
+                                int64_t n_groups, int64_t n_rows,
+                                int64_t n_buckets, int kmer_format,
+                                cudaStream_t stream) {
   return count<false>(value, valid, qd48, Q, W, grest, gstart, gend, prefix,
                       nullptr, d48, prefix_bits, cap, start, wlen, cut, acc,
-                      stash, stash_cap, stash_top, wstash, nullptr,
-                      kmer_format, stream);
+                      stash, stash_cap, stash_top, wstash, nullptr, n_groups,
+                      n_rows, n_buckets, kmer_format, stream);
 }
 
 extern "C" int mtb_search_write(const int64_t* qd48, int64_t Q, int W,
@@ -497,10 +529,12 @@ extern "C" int mtb_search_write(const int64_t* qd48, int64_t Q, int W,
                                 const int64_t* scan, const int2* stash,
                                 const int64_t* wstash, int32_t* out_row,
                                 int32_t* out_slot, int32_t* out_pay,
-                                int kmer_format, cudaStream_t stream) {
+                                int64_t stash_cap, int64_t n_rows,
+                                int64_t n_out, int kmer_format,
+                                cudaStream_t stream) {
   return write<false>(qd48, Q, W, d48, start, wlen, cut, scan, stash, wstash,
-                      out_row, out_slot, out_pay, nullptr, kmer_format,
-                      stream);
+                      out_row, out_slot, out_pay, nullptr, stash_cap, n_rows,
+                      n_out, kmer_format, stream);
 }
 
 // K11: value stands in for qd48, the bucket records (int32 [2^prefix_bits
@@ -512,11 +546,12 @@ extern "C" int mtb_search_count_reduced(
     const int4* rec, const uint32_t* tword, int prefix_bits, int cap,
     int32_t* start, int32_t* wlen, int32_t* cut, int64_t* acc, int2* stash,
     int64_t stash_cap, unsigned long long* stash_top, int64_t* wstash,
-    const int32_t* lut, int kmer_format, cudaStream_t stream) {
+    const int32_t* lut, int64_t n_groups, int64_t n_rows, int64_t n_buckets,
+    int kmer_format, cudaStream_t stream) {
   return count<true>(value, valid, qword, Q, W, grest, gstart, gend, nullptr,
                      rec, tword, prefix_bits, cap, start, wlen, cut, acc,
-                     stash, stash_cap, stash_top, wstash, lut, kmer_format,
-                     stream);
+                     stash, stash_cap, stash_top, wstash, lut, n_groups,
+                     n_rows, n_buckets, kmer_format, stream);
 }
 
 extern "C" int mtb_search_write_reduced(
@@ -524,8 +559,9 @@ extern "C" int mtb_search_write_reduced(
     const int32_t* start, const int32_t* wlen, const int32_t* cut,
     const int64_t* scan, const int2* stash, const int64_t* wstash,
     int32_t* out_row, int32_t* out_slot, int32_t* out_pay, const int32_t* lut,
-    int kmer_format, cudaStream_t stream) {
+    int64_t stash_cap, int64_t n_rows, int64_t n_out, int kmer_format,
+    cudaStream_t stream) {
   return write<true>(qword, Q, W, tword, start, wlen, cut, scan, stash,
-                     wstash, out_row, out_slot, out_pay, lut, kmer_format,
-                     stream);
+                     wstash, out_row, out_slot, out_pay, lut, stash_cap,
+                     n_rows, n_out, kmer_format, stream);
 }

@@ -7,6 +7,14 @@ key sorts), built with the reference package's flags into this package's
 git-ignored build directory; nothing is written next to the sources. A
 failed build raises: the port has no pure-Python fallback for the
 taxonomer finish or the gene predictor.
+
+``METABULI_TPU_SANITIZE=address[,undefined]`` builds an ASan/UBSan
+variant instead, a library of its own (``libmetabuli_native.so.asan.so``)
+beside the normal one, which it leaves as it is. A process loads it only
+under ``LD_PRELOAD=$(g++ -print-file-name=libasan.so)``; the sanitizer
+pass over these sources (``sancheck.cpp``,
+``tests/test_torch_native_sanitize.py``) replays a classification's
+argument buffers in a sanitized executable instead.
 """
 
 from __future__ import annotations
@@ -27,17 +35,24 @@ SRCS = [os.path.join(SRC_DIR, name) for name in
         ("taxonomer.cpp", "masker.cpp", "genepred.cpp", "prodigal.cpp",
          "fastx.cpp", "sortkeys.cpp")]
 _SO = os.path.join(BUILD_DIR, "libmetabuli_native.so")
+SANITIZE_ENV = "METABULI_TPU_SANITIZE"
 
 
-def _build() -> str:
+def build() -> str:
+    """Compile the library if a source is newer than it (raises on a
+    failed build); returns its path: the normal library, or its sanitized
+    variant when METABULI_TPU_SANITIZE is set."""
+    sanitize = os.environ.get(SANITIZE_ENV, "")
+    so = _SO + (".asan.so" if sanitize else "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # one builder at a time across processes (pytest-xdist workers)
-    with open(_SO + ".lock", "w") as lock:
+    # one build of each library at a time across processes (pytest-xdist
+    # workers)
+    with open(so + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         newest = max(os.path.getmtime(src) for src in SRCS)
-        if os.path.exists(_SO) and os.path.getmtime(_SO) >= newest:
-            return _SO
-        tmp = f"{_SO}.{os.getpid()}.tmp"
+        if os.path.exists(so) and os.path.getmtime(so) >= newest:
+            return so
+        tmp = f"{so}.{os.getpid()}.tmp"
         # the reference package's flags; -ffp-contract=off keeps the
         # taxonomer's and the Prodigal port's float arithmetic
         # uncontracted, as it is built there
@@ -45,13 +60,16 @@ def _build() -> str:
             "g++", "-O3", "-march=native", "-ffp-contract=off", "-fopenmp",
             "-shared", "-fPIC", "-std=c++17", *SRCS, "-o", tmp, "-lz",
         ]
+        if sanitize:
+            cmd[1:1] = [f"-fsanitize={sanitize}", "-fno-omit-frame-pointer",
+                        "-g"]
         res = subprocess.run(cmd, capture_output=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(
                 "native host library build failed:\n"
                 + res.stderr.decode(errors="replace")[-4000:])
-        os.replace(tmp, _SO)
-        return _SO
+        os.replace(tmp, so)
+        return so
 
 
 def get_lib():
@@ -60,7 +78,7 @@ def get_lib():
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(_build())
+            lib = ctypes.CDLL(build())
             lib.taxonomer_assign.restype = ctypes.c_int64
             lib.taxonomer_finish.restype = ctypes.c_int64
             _LIB = lib

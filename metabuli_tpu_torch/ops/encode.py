@@ -237,8 +237,8 @@ def extract_metamers(codes: torch.Tensor, lens: torch.Tensor, *,
     rc = fn(codes.data_ptr(), lens.data_ptr(), B, L, W, int(bool(syncmer)),
             int(smer_len), aa_tab.data_ptr(), num_tab.data_ptr(),
             value.data_ptr(), pos.data_ptr(), valid.data_ptr(),
-            None if reduced else dna48.data_ptr(), kmer_format,
-            build.stream(dev))
+            None if reduced else dna48.data_ptr(), codes.numel(),
+            value.numel(), kmer_format, build.stream(dev))
     name = "extract_metamers" if kmer_format == 2 else "extract_metamers_f1"
     build.check(rc, name)
     # both alphabets count as K1 (of their format)
@@ -445,7 +445,7 @@ def extract_aa_kmers_dna(codes: torch.Tensor, lens: torch.Tensor, *,
     aa_tab = _tables(codes.device)[0]
     rc = build.get_lib().mtb_extract_aa_kmers_dna(
         codes.data_ptr(), lens.data_ptr(), B, L, W, k, aa_tab.data_ptr(),
-        value.data_ptr(), pos.data_ptr(), valid.data_ptr(),
+        value.data_ptr(), pos.data_ptr(), valid.data_ptr(), value.numel(),
         build.stream(codes.device))
     build.check(rc, "extract_aa_kmers_dna")
     build.launches["extract_aa_kmers_dna"] += 1

@@ -329,6 +329,27 @@ def uniref_tree_sha256(tree_path: str) -> str:
 DB_CHUNK = 64  # genomes per K1 launch of build_db
 
 
+def sort_rows(v, t):
+    """Rows (int64 metamer values ``v``, taxids ``t``) in the table's
+    order: by unsigned value, then taxid."""
+    import torch
+
+    flip = -(1 << 63)  # signed order of v ^ 2^63 == unsigned order of v
+    o = torch.sort(t, stable=True)[1]
+    o = o[torch.sort(v[o] ^ flip, stable=True)[1]]
+    return v[o], t[o]
+
+
+def unique_rows(v, t):
+    """``sort_rows``, each (value, taxid) once."""
+    import torch
+
+    v, t = sort_rows(v, t)
+    keep = torch.ones(v.numel(), dtype=torch.bool, device=v.device)
+    keep[1:] = (v[1:] != v[:-1]) | (t[1:] != t[:-1])
+    return v[keep], t[keep]
+
+
 def build_db(db_dir: str, tax, genomes, device, rows: int = 0,
              never_match: bool = False) -> dict:
     """Metamer DB of species-level genomes: 6-frame metamers of every
@@ -367,20 +388,8 @@ def build_db(db_dir: str, tax, genomes, device, rows: int = 0,
         vals.append(mm.value[mm.valid])
         taxs.append(t[:, None, None].expand(mm.valid.shape)[mm.valid])
         del mm
-    v = torch.cat(vals)
-    t = torch.cat(taxs)
+    v, t = unique_rows(torch.cat(vals), torch.cat(taxs))
     del vals, taxs
-    flip = -(1 << 63)  # signed order of v ^ 2^63 == unsigned order of v
-
-    def sort_vt(v, t):
-        o = torch.sort(t, stable=True)[1]
-        o = o[torch.sort(v[o] ^ flip, stable=True)[1]]
-        return v[o], t[o]
-
-    v, t = sort_vt(v, t)
-    keep = torch.ones(v.numel(), dtype=torch.bool, device=device)
-    keep[1:] = (v[1:] != v[:-1]) | (t[1:] != t[:-1])
-    v, t = v[keep], t[keep]
     n_real = int(v.numel())
     n_decoys = max(0, rows - n_real) if rows else 0
     if n_decoys:
@@ -398,11 +407,12 @@ def build_db(db_dir: str, tax, genomes, device, rows: int = 0,
                                             dtype=np.int64)).to(device)
         species = np.unique(np.asarray(sp_int, np.int64))
         dt = torch.from_numpy(rng.choice(species, size=aa.numel())).to(device)
-        v, t = sort_vt(torch.cat([v, (aa << 24) | dna]), torch.cat([t, dt]))
+        v, t = sort_rows(torch.cat([v, (aa << 24) | dna]),
+                         torch.cat([t, dt]))
         del aa, dna, dt
     values = v.cpu().numpy().view(np.uint64)
     taxids = t.to(torch.int32).cpu().numpy().view(np.uint32)
-    del v, t, keep
+    del v, t
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     t1 = time.perf_counter()

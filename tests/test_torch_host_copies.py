@@ -21,6 +21,7 @@ COPIES = [
     "native/sort.py",
     "native/taxonomer.cpp", "native/masker.cpp", "native/fastx.cpp",
     "native/sortkeys.cpp", "native/genepred.cpp", "native/prodigal.cpp",
+    "native/sancheck.cpp",
     "tools/validate.py", "tools/validate_input.py",
     "tools/accession.py", "tools/benchmark.py", "tools/benchmark_sets.py",
     "tools/databases.py", "tools/dbreport.py", "tools/extract.py",
