@@ -84,7 +84,9 @@ Phases, one line each; any failure exits non-zero:
             classifications must equal the classify phase's
   pipeline  the classify phase's run is pipelined: the worker's finish
             seconds, the part of them during which the main thread parsed
-            or dispatched another batch, and each thread's CPU seconds
+            or dispatched another batch, each thread's CPU seconds, and
+            the main thread's spans (parse, encode, launch, wait, emit,
+            reports, main_stall) in ms a batch
   reduced   the port's CLI ``build --reduced-aa 1`` of dbbuild's library at
             the defaults (K1's reduced variant on the card), then K1
             reduced and K11 (K2's reduced variant) against their plain
@@ -1223,7 +1225,9 @@ def hosttax_phase(tmp, fq, db, want_digest, dev) -> dict:
 def pipeline_phase(s) -> None:
     """The classify phase's CLI run, pipelined: the worker's finish
     seconds, the part of them during which the main thread parsed or
-    dispatched another batch, and each thread's CPU seconds."""
+    dispatched another batch, each thread's CPU seconds, and the main
+    thread's spans (``stage_ms`` parse ... reports, main_stall) a
+    batch."""
     say("pipeline", classified=s["classified"],
         classify_s=round(s["classify_s"], 3),
         finish_s=round(s["finish_s"], 3),
@@ -1231,8 +1235,11 @@ def pipeline_phase(s) -> None:
         overlap_share=round(s["finish_overlap_s"] / max(s["finish_s"],
                                                         1e-9), 3),
         finish_cpu_s=round(s["finish_cpu_s"], 3),
-        main_cpu_s=round(s["main_cpu_s"], 3),
-        dispatch_s=round(s["device_s"], 3), worker_s=round(s["tax_s"], 3))
+        main_cpu_s=round(s["main_cpu_s"], 3), batches=s["batches"])
+    say("pipeline", main_ms_per_batch={
+        k: round(s["stage_ms"][k] / s["batches"], 3)
+        for k in ("parse", "encode", "launch", "wait", "emit", "reports",
+                  "main_stall")})
     if s["classified"] != CLASSIFIED:
         fail("pipeline", f"{s['classified']} reads classified")
 

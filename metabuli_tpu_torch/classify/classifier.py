@@ -31,9 +31,11 @@ ROADMAP.md item; none is taken quietly.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -76,11 +78,42 @@ class QueryMeta:
     read_len: int  # usedLen(mate1) + usedLen(mate2)
 
 
+def _rf_open(name: str, args: tuple):
+    rec = torch.profiler.record_function(name)
+    rec.__enter__()
+    return rec
+
+
+def _rf_close(rec):
+    rec.__exit__(None, None, None)
+
+
+# A span's profiler range: the user-scope range that record_function
+# opens, entered without a dispatcher op (which can hand the interpreter
+# lock to another thread) and with the batch's id as an int input; a
+# torch without these private entry points gets record_function's range,
+# without the id.
+if all(hasattr(torch.autograd, f"_record_function_with_args_{e}")
+       for e in ("enter", "exit")):
+    _enter_range = torch.autograd._record_function_with_args_enter
+    _close_range = torch.autograd._record_function_with_args_exit
+
+    def _open_range(name: str, args: tuple):
+        return _enter_range(name, *args)
+else:
+    _open_range, _close_range = _rf_open, _rf_close
+
+
 class StageTimer:
     """Per-stage wall time of the batches, from CUDA events on the card
     (host clock on the CPU); ``ms`` accumulates over the run. A batch's
     marks are read once its device work is done (``resolve``), so timing
-    adds no synchronisation to the dispatch."""
+    adds no synchronisation to the dispatch. The host phases around them
+    are ``span``s: host-clock ms in the same ``ms``, and ranges on the
+    profiler's timeline."""
+
+    # the main thread's phases whose stall goes to ms["main_stall"]
+    STALLED = ("parse", "encode", "launch", "emit")
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -114,11 +147,37 @@ class StageTimer:
     def add(self, name: str, ms: float):
         self.ms[name] = self.ms.get(name, 0.0) + ms
 
+    @contextmanager
+    def span(self, name: str, batch: int | None = None, *, ms: bool = True):
+        """A ``metabuli.<name>`` range on the profiler's host timeline, on
+        the device activities' clock, whose input is the batch's id (a
+        trace shows it where the profiler records inputs); with no
+        profiler on it costs a range's enter and exit. Adds the span's
+        host-clock ms to ``ms[name]`` (``ms=False``: the range alone)
+        and, for a ``STALLED`` phase, its wall time less this thread's
+        CPU time to ``ms["main_stall"]``: time the thread neither
+        computed nor meant to wait (the interpreter lock held by another
+        thread, the host's preemption, a read from the disk, a device
+        wait the CUDA runtime sleeps through)."""
+        rec = _open_range(f"metabuli.{name}",
+                          () if batch is None else (batch,))
+        t, cpu = time.perf_counter(), time.thread_time()
+        try:
+            yield
+        finally:
+            wall = time.perf_counter() - t
+            if name in self.STALLED:
+                self.add("main_stall",
+                         max(0.0, wall - (time.thread_time() - cpu)) * 1e3)
+            if ms:
+                self.add(name, wall * 1e3)
+            _close_range(rec)
+
 
 class Job(NamedTuple):
     """One dispatched batch: its reads, the copy of its device results in
-    flight to the host, its counters, its stage marks and the run's index
-    of its first read."""
+    flight to the host, its counters, its stage marks, the run's index
+    of its first read and the batch's id (its index in the run)."""
 
     metas: list
     host: HostCopy
@@ -126,6 +185,7 @@ class Job(NamedTuple):
     read_lens: np.ndarray
     marks: list
     first: int = 0
+    batch: int = 0
 
 
 def overlap_s(a, b) -> float:
@@ -146,63 +206,75 @@ class Classifier:
     def __init__(self, db_dir: str, params: ClassifyParams, device="cuda"):
         self.device = build.device(device)
         self.par = params
-        t0 = time.perf_counter()
-        self.index = MetamerIndex.load(db_dir)
-        dbp = self.index.params
-        # db.parameters override user flags (`common.cpp:88-133`)
-        params.syncmer = dbp.syncmer
-        params.smer_len = dbp.smer_len
-        params.kmer_format = dbp.kmer_format
-        params.reduced_aa = dbp.reduced_aa
-        params.skip_redundancy = dbp.skip_redundancy
-        if dbp.accession_level == 0 and params.accession_level == 1:
-            params.accession_level = 0
-        reduced = bool(params.reduced_aa)
-        self.taxonomy = self.index.taxonomy
-        tp = TaxonomerParams(
-            min_score=params.min_score,
-            min_sp_score=params.min_sp_score,
-            min_cons_cnt=params.min_cons_cnt,
-            min_cons_cnt_euk=params.min_cons_cnt_euk,
-            tie_ratio=params.tie_ratio,
-            syncmer=bool(params.syncmer),
-            smer_len=params.smer_len,
-            seq_mode=params.seq_mode,
-            accession_level=params.accession_level,
-            em=bool(params.em),
-            reduced_aa=reduced,
-            kmer_format=params.kmer_format,
-            print_log=bool(params.print_log),
-        )
-        # --print-log dumps each species' match paths during combination
-        # (Taxonomer.cpp:346-353); only the Python taxonomer prints them,
-        # so it takes every read, as in the reference package; the device
-        # taxonomer assumes the standard codon layout, so the reduced
-        # alphabet takes the host path
-        self.mode = ("log" if params.print_log else
-                     "device" if params.device_tax and not reduced
-                     else "host")
-        self.taxonomer = self.device_taxonomer = self.native_taxonomer = None
-        if self.mode == "log":
-            self.taxonomer = Taxonomer(tp, self.taxonomy)
-        elif self.mode == "device":
-            self.device_taxonomer = DeviceTaxonomer(
-                tp, self.taxonomy, self.device, threads=params.threads)
-        elif self.mode == "host":
-            self.native_taxonomer = NativeTaxonomer(
-                tp, self.taxonomy, threads=params.threads)
-        self.reporter = Reporter(self.taxonomy, bool(params.print_lineage))
+        self.timer = StageTimer(self.device)
+        with self.timer.span("load.decode"):
+            self.index = MetamerIndex.load(db_dir)
+        # the rest of the load: the DB's parameters, the taxonomer's
+        # tables and the device index
+        with self.timer.span("load.index"):
+            dbp = self.index.params
+            # db.parameters override user flags (`common.cpp:88-133`)
+            params.syncmer = dbp.syncmer
+            params.smer_len = dbp.smer_len
+            params.kmer_format = dbp.kmer_format
+            params.reduced_aa = dbp.reduced_aa
+            params.skip_redundancy = dbp.skip_redundancy
+            if dbp.accession_level == 0 and params.accession_level == 1:
+                params.accession_level = 0
+            reduced = bool(params.reduced_aa)
+            self.taxonomy = self.index.taxonomy
+            tp = TaxonomerParams(
+                min_score=params.min_score,
+                min_sp_score=params.min_sp_score,
+                min_cons_cnt=params.min_cons_cnt,
+                min_cons_cnt_euk=params.min_cons_cnt_euk,
+                tie_ratio=params.tie_ratio,
+                syncmer=bool(params.syncmer),
+                smer_len=params.smer_len,
+                seq_mode=params.seq_mode,
+                accession_level=params.accession_level,
+                em=bool(params.em),
+                reduced_aa=reduced,
+                kmer_format=params.kmer_format,
+                print_log=bool(params.print_log),
+            )
+            # --print-log dumps each species' match paths during
+            # combination (Taxonomer.cpp:346-353); only the Python
+            # taxonomer prints them, so it takes every read, as in the
+            # reference package; the device taxonomer assumes the standard
+            # codon layout, so the reduced alphabet takes the host path
+            self.mode = ("log" if params.print_log else
+                         "device" if params.device_tax and not reduced
+                         else "host")
+            self.taxonomer = self.device_taxonomer = None
+            self.native_taxonomer = None
+            if self.mode == "log":
+                self.taxonomer = Taxonomer(tp, self.taxonomy)
+            elif self.mode == "device":
+                self.device_taxonomer = DeviceTaxonomer(
+                    tp, self.taxonomy, self.device, threads=params.threads)
+            elif self.mode == "host":
+                self.native_taxonomer = NativeTaxonomer(
+                    tp, self.taxonomy, threads=params.threads)
+            self.reporter = Reporter(self.taxonomy,
+                                     bool(params.print_lineage))
 
-        # Reference quirk kept for bit-identity (`KmerMatcher.cpp:363-406`):
-        # the last k-mer of the database never becomes a candidate, so it
-        # is left out of the searchable table.
-        self.dev_index = self._build_index(
-            self.index.values[:-1], self.index.taxids[:-1].astype(np.int32))
-        self.d_species = torch.as_tensor(
-            self.index.species_table().astype(np.int32), device=self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.load_s = time.perf_counter() - t0
+            # Reference quirk kept for bit-identity
+            # (`KmerMatcher.cpp:363-406`): the last k-mer of the database
+            # never becomes a candidate, so it is left out of the
+            # searchable table.
+            self.dev_index = self._build_index(
+                self.index.values[:-1],
+                self.index.taxids[:-1].astype(np.int32))
+            self.d_species = torch.as_tensor(
+                self.index.species_table().astype(np.int32),
+                device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        ms = self.timer.ms
+        self.load_stages = {"decode_s": ms.pop("load.decode") / 1e3,
+                            "index_s": ms.pop("load.index") / 1e3}
+        self.load_s = sum(self.load_stages.values())
         # an automatic batch (--batch-reads 0) ends at batch_reads reads or
         # batch_bases bases, to stay within batch_budget device bytes above
         # the resident index
@@ -215,9 +287,7 @@ class Classifier:
         # grows the cap to max_group whenever a group was cut, so its
         # output never truncates a group and --max-cap changes no output
         self.cap = max(1, self.index.max_group)
-        self.timer = StageTimer(self.device)
-        self.stats = {"matches": 0, "kmers": 0, "reads": 0,
-                      "device_s": 0.0, "tax_s": 0.0}
+        self.stats = {"matches": 0, "kmers": 0, "reads": 0}
 
     def _build_index(self, values: np.ndarray, taxids: np.ndarray):
         """The searchable table on the device: one ``DevIndex``, or AA-
@@ -305,40 +375,44 @@ class Classifier:
         ``plain=True`` runs the plain PyTorch versions of the four kernels
         instead of the kernels (the check of one against the other)."""
         job = self._dispatch(metas, rows, plain=plain)
-        results, (t0, _, t2, _) = self._finish_batch(job)
-        self.stats["tax_s"] += t2 - t0
+        results, _ = self._finish_batch(job)
         self.timer.resolve(job.marks)
         return results
 
-    def _dispatch(self, metas, rows, plain: bool = False) -> Job:
+    def _dispatch(self, metas, rows, plain: bool = False,
+                  batch: int = 0) -> Job:
         """Encode and upload a batch, run its device stages and queue the
-        copy of their results to the host (main thread)."""
+        copy of their results to the host (main thread): the spans
+        ``encode`` up to the first copy to the device, ``launch`` from it
+        to the queued copy back, both with the batch's id ``batch``."""
         par = self.par
-        t0 = time.perf_counter()
-        max_len = max((len(r[0]) for r in rows), default=0)
-        codes, lens = encode_seqs_padded([r[0] for r in rows],
-                                         max_len=max_len)
-        if par.mask_mode:
-            from ..ops.mask import mask_codes
+        with self.timer.span("encode", batch):
+            max_len = max((len(r[0]) for r in rows), default=0)
+            codes, lens = encode_seqs_padded([r[0] for r in rows],
+                                             max_len=max_len)
+            if par.mask_mode:
+                from ..ops.mask import mask_codes
 
-            for r_i, row in enumerate(rows):
-                n = len(row[0])
-                codes[r_i, :n] = mask_codes(codes[r_i, :n], par.mask_prob)
-        dev = self.device
-        as_dev = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)
-        read_lens = np.array([m.read_len for m in metas], np.int32)
-        self.timer.start()
-        d_codes, d_lens = as_dev(codes, np.uint8), as_dev(lens, np.int32)
-        d_pos = as_dev([r[2] for r in rows], np.int32)
-        d_qid = as_dev([r[1] for r in rows], np.int32)
-        self.timer.mark("upload")
-        host, counts = self._device_stages(d_codes, d_lens, d_pos, d_qid,
-                                           read_lens, plain)
-        marks = self.timer.stop()
-        self.stats["device_s"] += time.perf_counter() - t0
+                for r_i, row in enumerate(rows):
+                    n = len(row[0])
+                    codes[r_i, :n] = mask_codes(codes[r_i, :n],
+                                                par.mask_prob)
+            dev = self.device
+            as_dev = lambda a, dt: torch.as_tensor(np.asarray(a, dt),
+                                                   device=dev)
+            read_lens = np.array([m.read_len for m in metas], np.int32)
+        with self.timer.span("launch", batch):
+            self.timer.start()
+            d_codes, d_lens = as_dev(codes, np.uint8), as_dev(lens, np.int32)
+            d_pos = as_dev([r[2] for r in rows], np.int32)
+            d_qid = as_dev([r[1] for r in rows], np.int32)
+            self.timer.mark("upload")
+            host, counts = self._device_stages(d_codes, d_lens, d_pos,
+                                               d_qid, read_lens, plain)
+            marks = self.timer.stop()
         self.stats["kmers"] += counts["total_kmers"]
         self.stats["matches"] += counts["n_matches"]
-        return Job(metas, host, counts, read_lens, marks)
+        return Job(metas, host, counts, read_lens, marks, batch=batch)
 
     def _device_stages(self, d_codes, d_lens, d_pos, d_qid, read_lens,
                        plain: bool):
@@ -366,13 +440,15 @@ class Classifier:
         n_reads = len(job.metas)
         t1 = time.perf_counter()
         cpu = time.thread_time()
-        if self.mode == "device":
-            results = self.device_taxonomer.drain(job.host, job.read_lens,
-                                                  n_reads)
-        else:
-            results = self._assign(
-                matches_to_host(MatchColumns(*cols), job.counts),
-                job.read_lens)
+        # the range alone: done() adds the taxonomer call to "finish"
+        with self.timer.span("finish", job.batch, ms=False):
+            if self.mode == "device":
+                results = self.device_taxonomer.drain(
+                    job.host, job.read_lens, n_reads)
+            else:
+                results = self._assign(
+                    matches_to_host(MatchColumns(*cols), job.counts),
+                    job.read_lens)
         return results, (t0, t1, time.perf_counter(),
                          time.thread_time() - cpu)
 
@@ -423,10 +499,16 @@ class Classifier:
         this thread. --print-log stays serial: its Python taxonomer holds
         the interpreter lock throughout and prints, so a worker would
         overlap nothing and could interleave its lines. Returns the
-        taxonomer calls' host-clock seconds (``finish_s``), their part
+        batches it ran (``batches``), the taxonomer calls' host-clock
+        seconds (``finish_s``), their part
         during which this thread parsed or dispatched another batch
         (``finish_overlap_s``) and the CPU seconds of the thread that made
-        them (``finish_cpu_s``, their OpenMP helpers not counted)."""
+        them (``finish_cpu_s``, their OpenMP helpers not counted).
+
+        This thread's loop is in spans, each with its batch's id:
+        ``parse`` (the next batch from ``batches``; the last finds none),
+        ``encode`` and ``launch`` (``_dispatch``), ``wait`` (on the
+        worker) and ``emit``."""
         spans = {"finish": [], "busy": []}
         finish_cpu = 0.0
 
@@ -435,21 +517,28 @@ class Classifier:
             t0, t1, t2, cpu = clock
             spans["finish"].append((t1, t2))
             finish_cpu += cpu
-            self.stats["tax_s"] += t2 - t0
             self.timer.resolve(job.marks)
             self.timer.add("finish", (t2 - t1) * 1e3)
-            emit(job, results)
+            with self.timer.span("emit", job.batch):
+                emit(job, results)
+                # the written batch's CUDA events and pinned copies go
+                # here, not between spans: freeing a CUDA object can hand
+                # the interpreter lock to the worker
+                job.marks.clear()
+                if job.host is not None:
+                    job.host.tensors.clear()
 
         pool = (None if self.mode == "log" else
                 ThreadPoolExecutor(1, thread_name_prefix="metabuli-finish"))
         try:
             inflight = None
-            while True:
+            for batch in itertools.count():
                 t0 = time.perf_counter()
-                nxt = next(batches, None)
+                with self.timer.span("parse", batch):
+                    nxt = next(batches, None)
                 job = fut = None
                 if nxt is not None:
-                    job = self._dispatch(*nxt)
+                    job = self._dispatch(*nxt, batch=batch)
                 spans["busy"].append((t0, time.perf_counter()))
                 if job is not None:
                     if pool is None:
@@ -457,14 +546,19 @@ class Classifier:
                         continue
                     fut = pool.submit(self._finish_batch, job)
                 if inflight is not None:
-                    done(inflight[0], *inflight[1].result())
+                    prev, prev_fut = inflight
+                    with self.timer.span("wait", prev.batch):
+                        res = prev_fut.result()
+                    done(prev, *res)
                 if nxt is None:
                     break
                 inflight = (job, fut)
         finally:
             if pool is not None:
                 pool.shutdown(wait=True, cancel_futures=True)
-        return {"finish_s": sum(b - a for a, b in spans["finish"]),
+        # the loop's last batch found no reads: its id is the count
+        return {"batches": batch,
+                "finish_s": sum(b - a for a, b in spans["finish"]),
                 "finish_overlap_s": overlap_s(spans["finish"], spans["busy"]),
                 "finish_cpu_s": finish_cpu}
 
@@ -520,13 +614,16 @@ class Classifier:
             run = self._run_batches(self._iter_batches(q1, q2, skip=skip),
                                     emit)
 
-        self._write_reports(out_dir, job_id, tax_counts, total_reads)
+        # batch id: the run's last batch
+        with self.timer.span("reports", max(run["batches"] - 1, 0)):
+            self._write_reports(out_dir, job_id, tax_counts, total_reads)
         summary = {
             "reads": total_reads - skip,
             "classified": total_reads - tax_counts.get(0, 0),
             **self.stats,
             # DB load + device index build, then first batch -> last write
             "load_s": self.load_s,
+            "load_stages": self.load_stages,
             "classify_s": time.perf_counter() - t_run,
             "stage_ms": self.timer.ms,
             # the taxonomer calls (host clock), their part during which

@@ -22,6 +22,7 @@ import argparse
 import json
 import os
 import sys
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -103,23 +104,36 @@ def _classify(argv):
         return 0
     from .classify.classifier import Classifier
 
-    clf = Classifier(db_dir, par, device=args.device)
-    if args.trace_dir:
-        import torch
-
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if clf.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        os.makedirs(args.trace_dir, exist_ok=True)
-        with torch.profiler.profile(activities=acts) as prof:
-            summary = clf.classify_file(q1, q2, out_dir, job_id,
-                                        resume=args.resume)
-        prof.export_chrome_trace(os.path.join(args.trace_dir, "trace.json"))
-    else:
+    # the profile opens before the DB load, so it holds the load's spans
+    prof = _profiler(args.device) if args.trace_dir else None
+    with prof if prof is not None else nullcontext():
+        clf = Classifier(db_dir, par, device=args.device)
         summary = clf.classify_file(q1, q2, out_dir, job_id, resume=args.resume)
+    if prof is not None:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.trace_dir, "trace.json"))
     if par.verbosity > 0:
         print(json.dumps(summary))
     return 0
+
+
+def _profiler(device: str):
+    """The ``--trace-dir`` profiler: host and (on a card) device
+    activities, each range's inputs (the program's spans carry their
+    batch's id as one), and every thread where this torch can profile
+    them all (the finish worker's spans)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        extra = {"experimental_config": torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)}
+    except TypeError:  # a torch without the option
+        extra = {}
+    return torch.profiler.profile(activities=acts, record_shapes=True,
+                                  **extra)
 
 
 def _build(argv):

@@ -89,7 +89,8 @@ class ShardedClassifier(Classifier):
             return range(min(n, j * stride), min(n, (j + 1) * stride))
         return range(n) if self.mesh.writer else range(0)
 
-    def _dispatch(self, metas, rows, plain: bool = False) -> Job:
+    def _dispatch(self, metas, rows, plain: bool = False,
+                  batch: int = 0) -> Job:
         """This data row's reads of a global batch through the sharded
         step; a row without reads (the last batch) skips it on every rank
         of the row."""
@@ -99,8 +100,10 @@ class ShardedClassifier(Classifier):
                                                 self.per_row)
         first += lo
         if not metas:
-            return Job([], None, {}, np.zeros(0, np.int32), [], first)
-        return super()._dispatch(metas, rows, plain=plain)._replace(
+            return Job([], None, {}, np.zeros(0, np.int32), [], first,
+                       batch)
+        return super()._dispatch(metas, rows, plain=plain,
+                                 batch=batch)._replace(
             first=first)
 
     def _device_stages(self, d_codes, d_lens, d_pos, d_qid, read_lens,
