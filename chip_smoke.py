@@ -483,7 +483,7 @@ def reduced_layout(idx, q, cap, phase) -> None:
         slots_past_first_group=int(later.sum()))
 
 
-def kernel_phase(clf, metas, rows, out, phase="kernels", shape=None,
+def kernel_phase(clf, reads, out, phase="kernels", shape=None,
                  k1_shapes=()) -> dict:
     """K1-K4 against their plain versions on one batch's tensors, into
     ``out`` (kernel -> record; a ``shape`` of the batch goes under that
@@ -495,13 +495,11 @@ def kernel_phase(clf, metas, rows, out, phase="kernels", shape=None,
     from metabuli_tpu_torch.classify import pipeline
     from metabuli_tpu_torch.classify.device_compact import compact_paths
     from metabuli_tpu_torch.ops import encode
-    from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
 
     dev = clf.device
-    codes, lens = encode_seqs_padded([r[0] for r in rows])
-    codes = torch.from_numpy(codes).to(dev)
-    lens = torch.from_numpy(lens).to(dev)
-    n = len(rows)
+    codes = torch.from_numpy(reads.codes).to(dev)
+    lens = torch.from_numpy(reads.lens).to(dev)
+    n = len(reads.lens)
     offs = torch.zeros(n, dtype=torch.int32, device=dev)
     qids = torch.arange(n, dtype=torch.int32, device=dev)
 
@@ -556,8 +554,7 @@ def kernel_phase(clf, metas, rows, out, phase="kernels", shape=None,
                    lambda r: nbytes([*cargs, *r]))
     paths, gstart = device_combine.sort_paths(
         compact_paths(chain, m.qid, m.species, m.pos, h16))
-    rl = torch.as_tensor(np.array([x.read_len for x in metas], np.int32),
-                         device=dev)
+    rl = torch.as_tensor(reads.read_lens, device=dev)
     # K4 reads every path's start, end and score, a boundary-codon word
     # (sh16 or eh16) only for each side of a path that a trim cuts, and per
     # group its bounds, its head's read and that read's length (once per
@@ -707,7 +704,6 @@ def reduced_phase(tmp, lib, acc, fq, dev, timings) -> dict:
     from metabuli_tpu_torch.classify import pipeline
     from metabuli_tpu_torch.classify.classifier import Classifier
     from metabuli_tpu_torch.ops import encode
-    from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
     from metabuli_tpu_torch.params import ClassifyParams
 
     t0 = time.perf_counter()
@@ -743,10 +739,9 @@ def reduced_phase(tmp, lib, acc, fq, dev, timings) -> dict:
     if not idx.reduced or clf.mode != "host":
         fail("reduced", "the DB did not load as a reduced index on the host "
                         "taxonomer path")
-    metas, rows = next(clf._iter_batches(fq, None))
-    codes, lens = encode_seqs_padded([r[0] for r in rows])
-    codes = torch.from_numpy(codes).to(dev)
-    lens = torch.from_numpy(lens).to(dev)
+    reads = next(clf._iter_batches(fq, None))
+    codes = torch.from_numpy(reads.codes).to(dev)
+    lens = torch.from_numpy(reads.lens).to(dev)
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts
                             if t is not None)
     mm = record_kernel(
@@ -874,7 +869,6 @@ def format1_phase(tmp, lib, acc, fq, dev, timings, dbbuild_rate) -> dict:
     from metabuli_tpu_torch.classify import pipeline
     from metabuli_tpu_torch.classify.classifier import Classifier
     from metabuli_tpu_torch.ops import encode
-    from metabuli_tpu_torch.ops.genetic_code import encode_seqs_padded
     from metabuli_tpu_torch.params import ClassifyParams
 
     t0 = time.perf_counter()
@@ -908,10 +902,9 @@ def format1_phase(tmp, lib, acc, fq, dev, timings, dbbuild_rate) -> dict:
     if idx.kmer_format != 1 or clf.mode != "device":
         fail("format1", "the DB did not load as a format-1 index on the "
                         "device taxonomer path")
-    metas, rows = next(clf._iter_batches(fq, None))
-    codes, lens = encode_seqs_padded([r[0] for r in rows])
-    codes = torch.from_numpy(codes).to(dev)
-    lens = torch.from_numpy(lens).to(dev)
+    reads = next(clf._iter_batches(fq, None))
+    codes = torch.from_numpy(reads.codes).to(dev)
+    lens = torch.from_numpy(reads.lens).to(dev)
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     mm = record_kernel(
         timings, "format1", "extract_metamers_f1",
@@ -1080,7 +1073,7 @@ def uniref_phase(tmp, dev, timings) -> dict:
     return runs
 
 
-def parity(clf, metas, rows, resident, phase) -> None:
+def parity(clf, reads, resident, phase) -> None:
     """One batch through the kernels and through the plain versions: the
     classification lines must be identical."""
     import torch
@@ -1089,13 +1082,13 @@ def parity(clf, metas, rows, resident, phase) -> None:
     lines, peak = {}, {}
     for plain in (False, True):
         torch.cuda.reset_peak_memory_stats(dev)
-        res = clf.classify_batch(metas, rows, plain=plain)
+        res = clf.classify_batch(reads, plain=plain)
         peak[plain] = torch.cuda.max_memory_allocated(dev) - resident
-        lines[plain] = [clf.reporter.classification_row(mt.name, rc,
-                                                        mt.read_len)
-                        for mt, rc in zip(metas, res)]
+        lines[plain] = [clf.reporter.classification_row(name, rc, rl)
+                        for name, rc, rl in zip(
+                            reads.names, res, reads.read_lens.tolist())]
     same = lines[False] == lines[True]
-    say(phase, reads=len(metas),
+    say(phase, reads=len(reads.names),
         classified=sum(rc.is_classified for rc in res), identical=same,
         batch_peak_gib=round(peak[False] / 2**30, 3),
         plain_batch_peak_gib=round(peak[True] / 2**30, 3))
@@ -1150,23 +1143,22 @@ def longread_phase(tmp, dev, timings) -> dict:
         resident_gib=round(resident / 2**30, 3))
     # one automatic batch (--batch-reads 0): its device peak above the
     # resident index must stay within the byte budget it was cut for
-    auto_metas, auto_rows = next(clf._iter_batches(fq, None))
+    auto = next(clf._iter_batches(fq, None))
     torch.cuda.reset_peak_memory_stats(dev)
-    clf.classify_batch(auto_metas, auto_rows)
+    clf.classify_batch(auto)
     auto_peak = torch.cuda.max_memory_allocated(dev) - resident
-    say("longread", auto_reads=len(auto_metas),
-        auto_bases=sum(len(r[0]) for r in auto_rows),
+    say("longread", auto_reads=len(auto.names),
+        auto_bases=int(auto.lens.sum()),
         batch_reads=clf.par.batch_reads, batch_bases=clf.batch_bases,
         auto_batch_peak_gib=round(auto_peak / 2**30, 3),
         budget_gib=round(clf.batch_budget / 2**30, 3))
     if auto_peak > clf.batch_budget:
         fail("longread", "an automatic batch took more device memory than "
                          "its budget")
-    # the CLI run's first batch: single-end reads, so read i is row i
-    metas, rows = auto_metas[:LONGREAD_BATCH], auto_rows[:LONGREAD_BATCH]
-    kernel_phase(clf, metas, rows, timings, phase="longread",
-                 shape="longread")
-    parity(clf, metas, rows, resident, "longread")
+    # the CLI run's first batch
+    reads = auto.take(0, LONGREAD_BATCH)
+    kernel_phase(clf, reads, timings, phase="longread", shape="longread")
+    parity(clf, reads, resident, "longread")
     del clf
     torch.cuda.empty_cache()
     out = os.path.join(tmp, "long_out")
@@ -1589,16 +1581,16 @@ def main() -> int:
         say("kernels", db_load_s=round(clf.load_s, 3), cap=clf.cap,
             index_rows=clf.dev_index.n,
             resident_gib=round(resident / 2**30, 3))
-        metas, rows = next(clf._iter_batches(fq, None))
+        reads = next(clf._iter_batches(fq, None))
         timings = {}
-        kernel_phase(clf, metas, rows, timings, k1_shapes=[
+        kernel_phase(clf, reads, timings, k1_shapes=[
             ("db_chunk", encode_seqs_padded(
                 [g for g, _ in genomes[:world.DB_CHUNK]])),
             ("build_blocks", build_block_batch(tax, genomes[:8], dev)),
             ("long_row", long_row)])
-        parity(clf, metas, rows, resident, "parity")
+        parity(clf, reads, resident, "parity")
         checked_dir = os.path.join(tmp, "checked")
-        checked.save_batch(checked_dir, clf, metas, rows)
+        checked.save_batch(checked_dir, clf, reads)
         del clf
         torch.cuda.empty_cache()
 

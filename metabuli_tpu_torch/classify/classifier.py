@@ -36,7 +36,6 @@ import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
-from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -44,9 +43,8 @@ import torch
 
 from ..csrc import build
 from ..db.index import MetamerIndex
-from ..io import fasta
+from ..io.batch_reader import BatchReader, ReadBatch
 from ..io.report import Reporter
-from ..ops.genetic_code import encode_seqs_padded
 from ..params import ClassifyParams
 from .chunked import BYTES_PER_ROW, ChunkedIndex, build_chunks
 from .device_taxonomer import DeviceTaxonomer
@@ -68,14 +66,16 @@ def not_ported(what: str, item: str):
         f"(ROADMAP.md Queue 1, {item}); use metabuli_tpu for it")
 
 
-def _used_len(length: int) -> int:
-    return max(0, 3 * ((length - 2) // 3))
+def mask_rows(reads: ReadBatch, prob: float) -> np.ndarray:
+    """``--mask-mode 1``: a copy of the batch's code matrix with each row's
+    low-complexity regions (tantan, ``ops.mask``) set to the invalid
+    code."""
+    from ..ops.mask import mask_codes
 
-
-@dataclass
-class QueryMeta:
-    name: str
-    read_len: int  # usedLen(mate1) + usedLen(mate2)
+    codes = reads.codes.copy()
+    for r_i, n in enumerate(reads.lens.tolist()):
+        codes[r_i, :n] = mask_codes(codes[r_i, :n], prob)
+    return codes
 
 
 def _rf_open(name: str, args: tuple):
@@ -175,11 +175,12 @@ class StageTimer:
 
 
 class Job(NamedTuple):
-    """One dispatched batch: its reads, the copy of its device results in
-    flight to the host, its counters, its stage marks, the run's index
-    of its first read and the batch's id (its index in the run)."""
+    """One dispatched batch: its reads' names, the copy of its device
+    results in flight to the host, its counters, its reads' lengths, its
+    stage marks, the run's index of its first read and the batch's id (its
+    index in the run)."""
 
-    metas: list
+    names: list
     host: HostCopy
     counts: dict
     read_lens: np.ndarray
@@ -326,93 +327,49 @@ class Classifier:
         return b, budget * BATCH_READ_LEN // BATCH_BYTES_PER_READ, budget
 
     # ---------------------------------------------------------------- batches
-    def _iter_batches(self, q1: str, q2: str | None, skip: int = 0):
-        """Yield (metas, rows), rows = [(seq, qid_local, pos_offset)]; a
-        batch holds ``batch_reads`` reads, or fewer where ``batch_bases``
-        (if set) would be passed (at least one read a batch)."""
-        batch_reads, batch_bases = self.par.batch_reads, self.batch_bases
-        metas: list[QueryMeta] = []
-        rows: list[tuple[bytes, int, int]] = []
-        bases = 0
-        it1 = fasta.read_records(q1)
-        it2 = fasta.read_records(q2) if q2 else None
-        for _ in range(skip):
-            next(it1, None)
-            if it2 is not None:
-                next(it2, None)
-        while True:
-            rec1 = next(it1, None)
-            if rec1 is None:
-                break
-            rec2 = next(it2, None) if it2 is not None else None
-            if it2 is not None and rec2 is None:
-                raise ValueError("paired-end files have different read counts")
-            n = len(rec1.seq) + (len(rec2.seq) if rec2 is not None else 0)
-            if batch_bases and metas and bases + n > batch_bases:
-                yield metas, rows
-                metas, rows, bases = [], [], 0
-            bases += n
-            qid = len(metas)
-            if rec2 is not None:
-                ul1, ul2 = _used_len(len(rec1.seq)), _used_len(len(rec2.seq))
-                metas.append(QueryMeta(rec1.name, ul1 + ul2))
-                rows.append((rec1.seq, qid, 0))
-                rows.append((rec2.seq, qid, ul1 + 3))
-            else:
-                metas.append(QueryMeta(rec1.name, _used_len(len(rec1.seq))))
-                rows.append((rec1.seq, qid, 0))
-            if len(metas) >= batch_reads:
-                yield metas, rows
-                metas, rows, bases = [], [], 0
-        if metas:
-            yield metas, rows
+    def _iter_batches(self, q1: str, q2: str | None,
+                      skip: int = 0) -> BatchReader:
+        """The run's ``ReadBatch``es (``io.batch_reader``): a batch holds
+        ``batch_reads`` reads, or fewer where ``batch_bases`` (if set) would
+        be passed (at least one read a batch)."""
+        return BatchReader(q1, q2, self.par.batch_reads, self.batch_bases,
+                           skip)
 
-    def classify_batch(self, metas, rows, plain: bool = False
+    def classify_batch(self, reads: ReadBatch, plain: bool = False
                        ) -> list[ReadClassification]:
         """One batch through the device stages and the host finish, on
         this thread.
 
         ``plain=True`` runs the plain PyTorch versions of the four kernels
         instead of the kernels (the check of one against the other)."""
-        job = self._dispatch(metas, rows, plain=plain)
+        job = self._dispatch(reads, plain=plain)
         results, _ = self._finish_batch(job)
         self.timer.resolve(job.marks)
         return results
 
-    def _dispatch(self, metas, rows, plain: bool = False,
+    def _dispatch(self, reads: ReadBatch, plain: bool = False,
                   batch: int = 0) -> Job:
-        """Encode and upload a batch, run its device stages and queue the
-        copy of their results to the host (main thread): the spans
-        ``encode`` up to the first copy to the device, ``launch`` from it
-        to the queued copy back, both with the batch's id ``batch``."""
-        par = self.par
+        """Upload a batch, run its device stages and queue the copy of
+        their results to the host (main thread): the spans ``encode`` up to
+        the first copy to the device (``--mask-mode 1``'s masking),
+        ``launch`` from it to the queued copy back, both with the batch's
+        id ``batch``."""
         with self.timer.span("encode", batch):
-            max_len = max((len(r[0]) for r in rows), default=0)
-            codes, lens = encode_seqs_padded([r[0] for r in rows],
-                                             max_len=max_len)
-            if par.mask_mode:
-                from ..ops.mask import mask_codes
-
-                for r_i, row in enumerate(rows):
-                    n = len(row[0])
-                    codes[r_i, :n] = mask_codes(codes[r_i, :n],
-                                                par.mask_prob)
-            dev = self.device
-            as_dev = lambda a, dt: torch.as_tensor(np.asarray(a, dt),
-                                                   device=dev)
-            read_lens = np.array([m.read_len for m in metas], np.int32)
+            codes = (mask_rows(reads, self.par.mask_prob)
+                     if self.par.mask_mode else reads.codes)
         with self.timer.span("launch", batch):
             self.timer.start()
-            d_codes, d_lens = as_dev(codes, np.uint8), as_dev(lens, np.int32)
-            d_pos = as_dev([r[2] for r in rows], np.int32)
-            d_qid = as_dev([r[1] for r in rows], np.int32)
+            d_codes, d_lens, d_pos, d_qid = (
+                torch.as_tensor(a, device=self.device)
+                for a in (codes, reads.lens, reads.pos, reads.qid))
             self.timer.mark("upload")
             host, counts = self._device_stages(d_codes, d_lens, d_pos,
-                                               d_qid, read_lens, plain)
+                                               d_qid, reads.read_lens, plain)
             marks = self.timer.stop()
         self.stats["kmers"] += counts["total_kmers"]
         self.stats["matches"] += counts["n_matches"]
-        return Job(metas, host, counts, read_lens, marks, batch=batch)
+        return Job(reads.names, host, counts, reads.read_lens, marks,
+                   batch=batch)
 
     def _device_stages(self, d_codes, d_lens, d_pos, d_qid, read_lens,
                        plain: bool):
@@ -437,7 +394,7 @@ class Classifier:
         thread's CPU seconds in that call."""
         t0 = time.perf_counter()
         cols = job.host.wait()
-        n_reads = len(job.metas)
+        n_reads = len(job.names)
         t1 = time.perf_counter()
         cpu = time.thread_time()
         # the range alone: done() adds the taxonomer call to "finish"
@@ -474,12 +431,11 @@ class Classifier:
             out.append(self.taxonomer.choose_best_taxon(sub, rl))
         return out
 
-    def _emit_batch(self, fh, metas, results, tax_counts, total_reads,
+    def _emit_batch(self, fh, job: Job, results, tax_counts, total_reads,
                     first, mappings, all_results):
         """Write one batch's classifications + accumulate clade counts/EM."""
-        self.stats["reads"] += len(metas)
-        rows_out = [(meta.name, rc, meta.read_len)
-                    for meta, rc in zip(metas, results)]
+        self.stats["reads"] += len(job.names)
+        rows_out = list(zip(job.names, results, job.read_lens.tolist()))
         self.reporter.write_classifications(fh, rows_out, first=first)
         for rc in results:
             t = rc.taxid if rc.is_classified else 0
@@ -488,12 +444,11 @@ class Classifier:
             for i, rc in enumerate(results):
                 for sp, sc in rc.species_scores:
                     mappings.append((total_reads + i, sp, sc))
-            all_results.extend((meta.name, rc, meta.read_len)
-                               for meta, rc in zip(metas, results))
-        return total_reads + len(metas), False
+            all_results.extend(rows_out)
+        return total_reads + len(job.names), False
 
     def _run_batches(self, batches, emit) -> dict:
-        """Run ``batches`` ((metas, rows) pairs) through the depth-2
+        """Run ``batches`` (``ReadBatch``es) through the depth-2
         pipeline: the worker finishes batch i while this thread dispatches
         batch i+1, and ``emit(job, results)`` takes each batch in order on
         this thread. --print-log stays serial: its Python taxonomer holds
@@ -538,7 +493,7 @@ class Classifier:
                     nxt = next(batches, None)
                 job = fut = None
                 if nxt is not None:
-                    job = self._dispatch(*nxt, batch=batch)
+                    job = self._dispatch(nxt, batch=batch)
                 spans["busy"].append((t0, time.perf_counter()))
                 if job is not None:
                     if pool is None:
@@ -606,13 +561,13 @@ class Classifier:
         def emit(job, results):
             nonlocal total_reads, first
             total_reads, first = self._emit_batch(
-                fh, job.metas, results, tax_counts, total_reads, first,
-                mappings, all_results)
+                fh, job, results, tax_counts, total_reads, first, mappings,
+                all_results)
 
         t_run, cpu_run = time.perf_counter(), time.thread_time()
-        with open(cls_path, "a" if skip else "w") as fh:
-            run = self._run_batches(self._iter_batches(q1, q2, skip=skip),
-                                    emit)
+        with (open(cls_path, "a" if skip else "w") as fh,
+              self._iter_batches(q1, q2, skip=skip) as reader):
+            run = self._run_batches(reader, emit)
 
         # batch id: the run's last batch
         with self.timer.span("reports", max(run["batches"] - 1, 0)):
@@ -626,6 +581,8 @@ class Classifier:
             "load_stages": self.load_stages,
             "classify_s": time.perf_counter() - t_run,
             "stage_ms": self.timer.ms,
+            # the query files' bytes (decompressed) the reader consumed
+            "parse_bytes": reader.bytes,
             # the taxonomer calls (host clock), their part during which
             # this thread parsed or dispatched another batch, and the CPU
             # seconds of the thread that made them (their OpenMP helpers

@@ -33,7 +33,7 @@ SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 SRCS = [os.path.join(SRC_DIR, name) for name in
         ("taxonomer.cpp", "masker.cpp", "genepred.cpp", "prodigal.cpp",
-         "fastx.cpp", "sortkeys.cpp")]
+         "fastx.cpp", "sortkeys.cpp", "batch_reader.cpp")]
 _SO = os.path.join(BUILD_DIR, "libmetabuli_native.so")
 SANITIZE_ENV = "METABULI_TPU_SANITIZE"
 
@@ -72,6 +72,20 @@ def build() -> str:
         return so
 
 
+def _declare_batch_reader(lib) -> None:
+    """The C interface of ``batch_reader.cpp`` (``io/batch_reader.py``)."""
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    lib.br_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int32,
+                            ctypes.c_int32, i64]
+    lib.br_open.restype = ptr
+    lib.br_close.argtypes = [ptr]
+    lib.br_close.restype = None
+    lib.br_read.argtypes = [ptr, i64, i64, ptr, ptr, i64]
+    lib.br_read.restype = i64
+    lib.br_fill.argtypes = [ptr, ptr, ctypes.c_uint8, *[i64] * 6, *[ptr] * 9]
+    lib.br_fill.restype = i64
+
+
 def get_lib():
     """Load the native library, building it first if needed (raises on a
     failed build)."""
@@ -81,5 +95,6 @@ def get_lib():
             lib = ctypes.CDLL(build())
             lib.taxonomer_assign.restype = ctypes.c_int64
             lib.taxonomer_finish.restype = ctypes.c_int64
+            _declare_batch_reader(lib)
             _LIB = lib
         return _LIB

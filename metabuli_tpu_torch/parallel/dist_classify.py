@@ -41,6 +41,7 @@ import torch
 from ..classify.classifier import Classifier, Job
 from ..classify.pipeline import to_host_async
 from ..csrc import build
+from ..io.batch_reader import ReadBatch
 from ..params import ClassifyParams
 from . import distributed as dist
 from .mesh import A2A_OVERFLOW, Mesh, sharded_classify, sharded_fused
@@ -89,20 +90,19 @@ class ShardedClassifier(Classifier):
             return range(min(n, j * stride), min(n, (j + 1) * stride))
         return range(n) if self.mesh.writer else range(0)
 
-    def _dispatch(self, metas, rows, plain: bool = False,
+    def _dispatch(self, reads: ReadBatch, plain: bool = False,
                   batch: int = 0) -> Job:
         """This data row's reads of a global batch through the sharded
         step; a row without reads (the last batch) skips it on every rank
         of the row."""
         first = self._seen
-        self._seen += len(metas)
-        metas, rows, lo = dist.distribute_reads(metas, rows, self.mesh,
-                                                self.per_row)
+        self._seen += len(reads.names)
+        reads, lo = dist.distribute_reads(reads, self.mesh, self.per_row)
         first += lo
-        if not metas:
+        if not reads.names:
             return Job([], None, {}, np.zeros(0, np.int32), [], first,
                        batch)
-        return super()._dispatch(metas, rows, plain=plain,
+        return super()._dispatch(reads, plain=plain,
                                  batch=batch)._replace(
             first=first)
 
@@ -131,7 +131,7 @@ class ShardedClassifier(Classifier):
         if job.host is None:
             t = time.perf_counter()
             return [], (t, t, t, 0.0)
-        own = self._own(len(job.metas))
+        own = self._own(len(job.names))
         results, clock = super()._finish_batch(job)
         return results[own.start:own.stop], clock
 
@@ -145,14 +145,15 @@ class ShardedClassifier(Classifier):
         row = self.reporter.classification_row
 
         def emit(job, results):
-            for i, rc in zip(self._own(len(job.metas)), results):
-                meta = job.metas[i]
+            read_lens = job.read_lens.tolist()
+            for i, rc in zip(self._own(len(job.names)), results):
                 fh.write(f"{job.first + i}\t"
-                         + row(meta.name, rc, meta.read_len))
+                         + row(job.names[i], rc, read_lens[i]))
 
         t_run = time.perf_counter()
-        with open(part, "w") as fh:
-            run = self._run_batches(self._iter_batches(q1, q2), emit)
+        with (open(part, "w") as fh,
+              self._iter_batches(q1, q2) as reader):
+            run = self._run_batches(reader, emit)
         classify_s = time.perf_counter() - t_run
         mesh.barrier()
         summary = {
@@ -161,7 +162,8 @@ class ShardedClassifier(Classifier):
             "route": self.route,
             "shard_rows": self.dev_index.rows,
             "load_s": self.load_s, "classify_s": classify_s,
-            "stage_ms": self.timer.ms, **run, **mesh.stats,
+            "stage_ms": self.timer.ms, "parse_bytes": reader.bytes,
+            **run, **mesh.stats,
             "launches": {k: v for k, v in build.launches.items() if v},
         }
         if self.device.type == "cuda":

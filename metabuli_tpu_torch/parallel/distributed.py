@@ -116,12 +116,12 @@ def distribute_index(values: np.ndarray, taxids: np.ndarray, mesh: Mesh,
                                   device=mesh.device)
 
 
-def distribute_reads(metas: list, rows: list, mesh: Mesh, per_row: int):
-    """This data row's slice of a global batch: reads ``[r * per_row,
-    (r + 1) * per_row)`` of row r and their rows, with qids local to the
-    row (the reference package's local qids per data row). Returns
-    (metas, rows, index of its first read in the batch)."""
+def distribute_reads(reads, mesh: Mesh, per_row: int):
+    """This data row's slice of a global batch (a ``ReadBatch``): reads
+    ``[r * per_row, (r + 1) * per_row)`` of row r and their rows, with
+    qids local to the row (the reference package's local qids per data
+    row). Returns (that ``ReadBatch``, index of its first read in the
+    batch)."""
     lo = mesh.data_row * per_row
-    hi = min(lo + per_row, len(metas))
-    return (metas[lo:hi], [(s, q - lo, p) for s, q, p in rows
-                           if lo <= q < hi], lo)
+    hi = max(lo, min(lo + per_row, len(reads.names)))
+    return reads.take(lo, hi), lo

@@ -49,22 +49,21 @@ from ..ops.genetic_code import encode_seqs_padded
 from . import probes, world
 
 
-def save_batch(path: str, clf, metas, rows) -> None:
+def save_batch(path: str, clf, reads) -> None:
     """What the checked run takes of the main path into ``path``: the
     table ``clf`` built its device index from (``Classifier`` leaves out
-    the DB's last row), and one batch of reads (``metas``, ``rows`` as
+    the DB's last row), and one batch of reads (a ``ReadBatch``, as
     ``Classifier._iter_batches`` gives them) with the tables K3 and K4
     read."""
     os.makedirs(path, exist_ok=True)
     np.save(os.path.join(path, "values.npy"), clf.index.values[:-1])
     np.save(os.path.join(path, "taxids.npy"),
             clf.index.taxids[:-1].astype(np.int32))
-    codes, lens = encode_seqs_padded([r[0] for r in rows])
     dtx = clf.device_taxonomer
     torch.save({
-        "codes": torch.from_numpy(codes), "lens": torch.from_numpy(lens),
-        "read_lens": torch.tensor([m.read_len for m in metas],
-                                  dtype=torch.int32),
+        "codes": torch.from_numpy(reads.codes),
+        "lens": torch.from_numpy(reads.lens),
+        "read_lens": torch.from_numpy(reads.read_lens),
         "species": clf.d_species.cpu(), "min_depth": dtx.min_depth.cpu(),
         "max_shift": dtx.p.max_codon_shift, "cap": clf.cap,
         "kmer_format": clf.par.kmer_format,

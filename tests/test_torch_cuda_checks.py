@@ -130,9 +130,9 @@ def test_checked_runner_main_path_rehearsal_on_the_cpu(tmp_path):
                                              max_mut=2))
     clf = Classifier(db, ClassifyParams(seq_mode=1, batch_reads=64),
                      device="cpu")
-    metas, rows = next(clf._iter_batches(fq, None))
+    reads = next(clf._iter_batches(fq, None))
     batch = str(tmp_path / "batch")
-    checked.save_batch(batch, clf, metas, rows)
+    checked.save_batch(batch, clf, reads)
     idx = pipeline.build_dev_index(np.load(f"{batch}/values.npy"),
                                    np.load(f"{batch}/taxids.npy"))
     for f in ("grest", "gstart", "gend", "taxdna", "d48", "prefix"):

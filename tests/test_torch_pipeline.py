@@ -3,6 +3,7 @@ JAX package over many batches and with every flag that shapes the output
 files, batches written in order whatever the worker's pace, and a failure
 in the worker ends the run."""
 
+import gzip
 import os
 import pathlib
 import subprocess
@@ -86,6 +87,56 @@ def test_flag_outputs_equal_jax(tmp_path, golden, flags):
     assert port_out["fl_classifications.tsv"].count(b"\n") == 22
 
 
+def _gzip_pairs(root, q) -> list:
+    """The golden reads as gzip FASTQ pairs: mate 1 the read's first 90
+    bases, mate 2 the reverse complement of its last 90."""
+    recs = pathlib.Path(q).read_text().split(">")[1:]
+    mates = ([], [])
+    for rec in recs:
+        name, seq = rec.split("\n")[:2]
+        rc = seq.translate(str.maketrans("ACGTN", "TGCAN"))[::-1]
+        for m, s in zip(mates, (seq[:90], rc[:90])):
+            m.append(f"@{name} x\n{s}\n+\n{'I' * len(s)}\n")
+    paths = [os.path.join(root, f"m{i}.fq.gz") for i in (1, 2)]
+    for path, m in zip(paths, mates):
+        with gzip.open(path, "wt") as fh:
+            fh.write("".join(m))
+    return paths
+
+
+def _contigs(root, world) -> list:
+    """Contigs of 600-2,500 bases cut from the golden genomes (in
+    ``world``), in 60-column FASTA lines with CRLF ends."""
+    out = []
+    for i, fa in enumerate(sorted(pathlib.Path(world, "fasta").iterdir())):
+        g = "".join(fa.read_text().split("\n")[1:])
+        for j, (a, n) in enumerate(((100, 2500), (3000, 600), (4000, 1500))):
+            s = g[a + 7 * i:a + 7 * i + n]
+            out.append(f">ctg{i}_{j} {fa.name}\r\n" + "".join(
+                s[k:k + 60] + "\r\n" for k in range(0, len(s), 60)))
+    path = os.path.join(root, "contigs.fasta")
+    pathlib.Path(path).write_text("".join(out), newline="")
+    return [path]
+
+
+@pytest.mark.parametrize("sample", ["gzip_pairs", "fasta_contigs"])
+def test_reader_inputs_equal_jax(tmp_path, golden, sample):
+    """The port's CLI, reading through its native batch reader, on a gzip
+    paired FASTQ sample and on a multi-line FASTA contig sample: the
+    classifications and the report equal the JAX package's."""
+    root, q, db = golden
+    if sample == "gzip_pairs":
+        files, flags = _gzip_pairs(tmp_path, q), ["--seq-mode", "2"]
+    else:
+        files, flags = _contigs(tmp_path, root), ["--seq-mode", "3"]
+    jax_out, port_out = run_both(str(tmp_path), [*files, db, None], "rd",
+                                 [*flags, "--batch-reads", "4"])
+    assert_same(jax_out, port_out)
+    lines = port_out["rd_classifications.tsv"].decode().splitlines()
+    assert len(lines) == 1 + (21 if sample == "gzip_pairs" else 9)
+    assert sum(ln.startswith("1\t") for ln in lines) >= len(lines) // 2
+
+
 def test_pipeline_keeps_batch_order_when_a_drain_is_slow(tmp_path, golden,
                                                           monkeypatch):
     """Batch 0's finish sleeps: the main thread dispatches batch 1 while
@@ -108,11 +159,11 @@ def test_pipeline_keeps_batch_order_when_a_drain_is_slow(tmp_path, golden,
             events.append(("drained", k))
         return out
 
-    def counted_dispatch(self, metas, rows, **kw):
+    def counted_dispatch(self, reads, **kw):
         with lock:
             events.append(("dispatch", sum(e[0] == "dispatch"
                                            for e in events)))
-        return dispatch(self, metas, rows, **kw)
+        return dispatch(self, reads, **kw)
 
     monkeypatch.setattr(DeviceTaxonomer, "drain", slow_drain)
     monkeypatch.setattr(port_classifier.Classifier, "_dispatch",
@@ -199,3 +250,4 @@ def test_overlap_counts_finish_time_beside_a_dispatch_not_a_wait(
     assert 0.2 <= s["finish_overlap_s"] <= s["finish_s"]
     assert 0 <= s["finish_cpu_s"] <= s["finish_s"] - 0.2
     assert 0 < s["main_cpu_s"] <= s["classify_s"]
+    assert s["parse_bytes"] == os.path.getsize(q)  # the reader read it all

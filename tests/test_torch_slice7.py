@@ -192,9 +192,9 @@ def test_long_read_batches_cut_by_bases(tmp_path, monkeypatch):
     sizes = []
     dispatch = port_classifier.Classifier._dispatch
     monkeypatch.setattr(port_classifier.Classifier, "_dispatch",
-                        lambda self, metas, rows, **kw: (
-                            sizes.append(sum(len(r[0]) for r in rows)),
-                            dispatch(self, metas, rows, **kw))[1])
+                        lambda self, reads, **kw: (
+                            sizes.append(int(reads.lens.sum())),
+                            dispatch(self, reads, **kw))[1])
     jax_out, port_out = run_both(str(tmp_path), [q, db, None], "lr",
                                  [*flags, "--batch-reads", "0"])
     assert len(sizes) >= 4 and max(sizes) <= 7000
