@@ -23,10 +23,48 @@ from . import metamers
 from .taxonomer import F32, Params, Result, Taxonomer
 
 M40 = (1 << 40) - 1
+# the bases, padding included, of the rows ``k2_bytes`` joins at once: a
+# batch of 8,192 2x150 bp pairs is one block
+BLOCK_CELLS = 1 << 22
 
 
-def used_len(length: int) -> int:
-    return max(0, 3 * ((length - 2) // 3))
+def used_len(length):
+    """Bases of a read (a mate) of ``length`` the classifier reports: its
+    whole codons; elementwise on an array."""
+    return np.maximum(0, 3 * ((np.asarray(length) - 2) // 3))
+
+
+def cuts(bases: np.ndarray, batch_reads: int, batch_bases: int = 0):
+    """``[a, b)`` of each batch of reads of ``bases`` bases each (a pair's
+    mates together), as the program's batch reader cuts them: at
+    ``batch_reads`` reads, or before the read that would pass
+    ``batch_bases`` bases (if set; at least one read a batch)."""
+    n = len(bases)
+    total = np.concatenate([[0], np.cumsum(bases)])
+    out, a = [], 0
+    while a < n:
+        b = min(a + batch_reads, n)
+        if batch_bases > 0:
+            fit = int(np.searchsorted(total, total[a] + batch_bases,
+                                      side="right")) - 1
+            b = min(b, max(fit, a + 1))
+        out.append((a, b))
+        a = b
+    return out
+
+
+def rows(mates) -> tuple[np.ndarray, np.ndarray]:
+    """The program's rows of some reads, given a ``traffic.Mate`` a mate:
+    base codes [rows, longest row], 7 past a row's end, and each row's
+    length; a read's mates one after another."""
+    k_mates, n = len(mates), len(mates[0].lens)
+    lens = np.stack([m.lens for m in mates], 1).reshape(-1)
+    codes = np.full((n * k_mates, int(lens.max(initial=0))), 7, np.uint8)
+    for k, m in enumerate(mates):
+        at = np.arange(m.bases.size) - np.repeat(m.starts(), m.lens)
+        codes[np.repeat(np.arange(n) * k_mates + k, m.lens), at] = \
+            metamers.to_codes(m.bases)
+    return codes, lens
 
 
 class Table:
@@ -68,11 +106,8 @@ class Join:
         cnt = hi - lo
         self.kmers = int(slot.numel())
         hit = cnt > 0
-        # each row of a group that some query met, once
-        g_lo = torch.unique(lo[hit])
-        self.group_rows = int((torch.searchsorted(
-            table.aa, table.aa[g_lo], right=True) - g_lo).sum()) if \
-            g_lo.numel() else 0
+        # the first row of each group that some query met
+        self.groups = torch.unique(lo[hit])
         e = torch.repeat_interleave(torch.arange(slot.numel(), device=dev),
                                     cnt)
         first = torch.cumsum(cnt, 0) - cnt
@@ -104,41 +139,53 @@ class Join:
         self.row = row
 
 
-def k2_bytes(table: Table, codes: np.ndarray, lens: np.ndarray) -> dict:
-    """The least bytes a search of these rows must move: each valid query
-    metamer read once (8 B), each row of a group a query met read once
-    (its 8 B value: K2 reads no taxid, the fetch after it gathers them),
-    each kept pair written once (two 4 B indices)."""
-    j = Join(table, codes, lens)
-    return {"kmers": j.kmers, "group_rows": j.group_rows,
-            "matches": j.matches,
-            "bytes": 8 * j.kmers + 8 * j.group_rows + 8 * j.matches}
+def k2_bytes(table: Table, mates) -> dict:
+    """The least bytes a search of one batch's reads (a ``traffic.Mate`` a
+    mate) must move: each valid query metamer read once
+    (8 B), each row of a group a query met read once (its 8 B value: K2
+    reads no taxid, the fetch after it gathers them), each kept pair
+    written once (two 4 B indices). Joined in blocks of reads by length,
+    each at most ``BLOCK_CELLS`` padded bases; a group met in several
+    blocks counts once."""
+    longest = np.stack([m.lens for m in mates], 1).max(1)
+    order = np.argsort(longest, kind="stable")
+    span = len(mates) * longest[order]
+    kmers = matches = 0
+    groups = []
+    a = 0
+    while a < order.size:
+        # reads a..b-1 of the order, each padded to the last one's span
+        fit = np.arange(1, order.size - a + 1) * span[a:] <= BLOCK_CELLS
+        b = a + max(1, int(np.count_nonzero(fit)))
+        j = Join(table, *rows([m.take(order[a:b]) for m in mates]))
+        kmers += j.kmers
+        matches += j.matches
+        groups.append(j.groups)
+        a = b
+    g_lo = torch.unique(torch.cat(groups))
+    group_rows = int((torch.searchsorted(
+        table.aa, table.aa[g_lo], right=True) - g_lo).sum())
+    return {"kmers": kmers, "group_rows": group_rows, "matches": matches,
+            "bytes": 8 * kmers + 8 * group_rows + 8 * matches}
 
 
-def classify_reads(table: Table, mates: list[np.ndarray], names: list[str],
-                   params: Params, num=F32) -> list[str]:
-    """Classification lines of some reads (``mates``: ASCII bases
-    [reads, length], one array a mate), in their order."""
-    n = len(names)
-    lens = [m.shape[1] for m in mates]
-    offsets = [0]
-    for ln in lens[:-1]:
-        offsets.append(offsets[-1] + used_len(ln) + 3)
-    read_len = sum(used_len(ln) for ln in lens)
-    # rows in the program's order: a read's mates one after another
-    L = max(lens)
-    codes = np.full((n * len(mates), L), 7, np.uint8)
-    for k, m in enumerate(mates):
-        codes[k::len(mates), :m.shape[1]] = metamers.to_codes(m)
-    row_lens = np.tile(np.asarray(lens, np.int64), n)
-    j = Join(table, codes, row_lens)
+def classify_reads(table: Table, mates, names: list[str], params: Params,
+                   num=F32) -> list[str]:
+    """Classification lines of some reads (a ``traffic.Mate`` a mate), in
+    their order."""
+    n, k_mates = len(names), len(mates)
+    used = np.stack([used_len(m.lens) for m in mates], 1)
+    # a row's positions start past the mates before it, 3 bases apart
+    row_off = (np.cumsum(used + 3, 1) - (used + 3)).reshape(-1)
+    read_len = used.sum(1)
+    j = Join(table, *rows(mates))
     mate = j.mate.cpu().numpy()
-    read = mate // len(mates)
+    read = mate // k_mates
     taxid = table.taxid[j.row].cpu().numpy()
     cols = {
         "species": table.species.cpu().numpy()[taxid],
         "frame": j.frame.cpu().numpy(),
-        "pos": j.pos.cpu().numpy() + np.asarray(offsets)[mate % len(mates)],
+        "pos": j.pos.cpu().numpy() + row_off[mate],
         "hamming": j.ham.cpu().numpy(),
         "dna": table.lo[j.row].cpu().numpy(),
         "taxid": taxid,
@@ -153,9 +200,10 @@ def classify_reads(table: Table, mates: list[np.ndarray], names: list[str],
     out = []
     for i in range(n):
         lo, hi = bounds[i], bounds[i + 1]
-        res = (tx.classify({k: v[lo:hi] for k, v in cols.items()}, read_len)
+        rl = int(read_len[i])
+        res = (tx.classify({k: v[lo:hi] for k, v in cols.items()}, rl)
                if hi > lo else Result())
-        out.append(line(table.tax, names[i], res, read_len))
+        out.append(line(table.tax, names[i], res, rl))
     return out
 
 

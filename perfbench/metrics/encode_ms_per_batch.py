@@ -1,7 +1,7 @@
 """The main thread's encode a batch (``Classifier._dispatch`` up to the
-first copy to the card: ``encode_seqs_padded``, masking, read lengths),
-from the summary's ``stage_ms["encode"]`` (the program's span, host
-clock)."""
+first copy to the card: ``--mask-mode 1``'s masking of the rows; the
+native batch reader has already encoded the bases), from the summary's
+``stage_ms["encode"]`` (the program's span, host clock)."""
 
 
 def read(ctx):

@@ -1,7 +1,9 @@
-"""The main thread's FASTQ read and batch assembly a batch
-(``Classifier._run_batches``: the next batch from ``_iter_batches``),
-from the summary's ``stage_ms["parse"]`` (the program's span, host
-clock)."""
+"""The main thread's read of the next batch a batch
+(``Classifier._run_batches``: ``next`` on the native batch reader,
+``io/batch_reader.py`` over ``native/batch_reader.cpp``, which parses the
+FASTQ/FASTA records and fills the batch's code matrix, lengths, offsets
+and names), from the summary's ``stage_ms["parse"]`` (the program's span,
+host clock)."""
 
 
 def read(ctx):

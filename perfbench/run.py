@@ -35,7 +35,6 @@ import argparse  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
-import math  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
 import sys  # noqa: E402
@@ -91,17 +90,19 @@ def check_reads(mix: dict, seed: int, k: int) -> np.ndarray:
     return np.sort(rng.choice(mix["reads"], size=n, replace=False))
 
 
-def judge_pass(lines: list[str], report: str, sample, want: dict, tax,
-               read_len: int) -> dict:
-    """Counts of what one classified sample got wrong: rows missing or
-    out of place, checked lines unlike the reference's, a report unlike
-    the one its lines give."""
+def judge_pass(lines: list[str], report: str, sample, want: dict,
+               tax) -> dict:
+    """Counts of what one classified sample got wrong: rows missing, out
+    of place or with another read length than their read's, checked lines
+    unlike the reference's, a report unlike the one its lines give."""
     body = lines[1:]
     names = sample.names()
+    read_lens = sum(reference.used_len(m.lens) for m in sample.mates)
     bad = abs(len(body) - len(names))
     for i, ln in enumerate(body[:len(names)]):
         cols = ln.split("\t", 4)
-        if len(cols) < 5 or cols[1] != names[i] or cols[3] != str(read_len):
+        if (len(cols) < 5 or cols[1] != names[i]
+                or cols[3] != str(read_lens[i])):
             bad += 1
     wrong = sum(1 for i, ref in want.items()
                 if i >= len(body) or body[i] != ref)
@@ -145,9 +146,6 @@ def run(args, cell, cfg, mix, spec, device, bench, work, t0) -> int:
                for k in range(n_samples + 1)]
     files = [s.write(work, f"s{k}") for k, s in enumerate(samples)]
     q = lambda k: (files[k][0], files[k][1] if len(files[k]) > 1 else None)
-    read_len = sum(reference.used_len(m.shape[1])
-                   for m in samples[0].mates)
-    batches_a_sample = math.ceil(mix["reads"] / settings["batch_reads"])
 
     ctx = SimpleNamespace(batches=0, stage_ms={}, main_cpu_s=None,
                           finish_s=0.0, finish_overlap_s=0.0, launches={},
@@ -169,7 +167,10 @@ def run(args, cell, cfg, mix, spec, device, bench, work, t0) -> int:
         db_load_s = time.perf_counter() - t
         if cuda:
             ctx.index_resident_bytes = torch.cuda.memory_allocated()
-        log(f"db_load_s {db_load_s:.3f}")
+        # where the reader cuts a batch: --batch-reads 0 sizes it here
+        batch_reads, batch_bases = clf.par.batch_reads, clf.batch_bases
+        log(f"db_load_s {db_load_s:.3f}; a batch: {batch_reads} reads"
+            + (f" or {batch_bases} bases" if batch_bases else ""))
         profiling = args.trace == 1
         acts = [torch.profiler.ProfilerActivity.CPU]
         if cuda:
@@ -187,7 +188,7 @@ def run(args, cell, cfg, mix, spec, device, bench, work, t0) -> int:
         prof = (torch.profiler.profile(activities=acts) if profiling
                 else nullcontext())
         main_cpu = finish = overlap = 0.0
-        reads = 0
+        reads = batches = 0
         sample_s = []
         tw0 = time.perf_counter()
         setup_s = tw0 - t0
@@ -204,6 +205,7 @@ def run(args, cell, cfg, mix, spec, device, bench, work, t0) -> int:
                     # (the summary's "reads" counts every call of the
                     # Classifier; a sample's lines are all checked below)
                     reads += mix["reads"]
+                    batches += s["batches"]
                     main_cpu += s["main_cpu_s"]
                     finish += s["finish_s"]
                     overlap += s["finish_overlap_s"]
@@ -211,7 +213,7 @@ def run(args, cell, cfg, mix, spec, device, bench, work, t0) -> int:
                         break
         window_s = time.perf_counter() - tw0
         peak = torch.cuda.max_memory_allocated() if cuda else 0
-        ctx.batches = batches_a_sample * len(passes)
+        ctx.batches = batches
         ctx.stage_ms = {k: v - before_ms.get(k, 0.0)
                         for k, v in clf.timer.ms.items()}
         after = program.launches()
@@ -251,7 +253,7 @@ def run(args, cell, cfg, mix, spec, device, bench, work, t0) -> int:
         idx = check_reads(mix, args.seed, k)
         names = samples[k].names()
         return dict(zip(idx.tolist(), reference.classify_reads(
-            table, [m[idx] for m in samples[k].mates],
+            table, [m.take(idx) for m in samples[k].mates],
             [names[i] for i in idx], par, num)))
 
     want = {k: lines_of(k, taxonomer.F32) for k in range(n_samples)}
@@ -271,14 +273,16 @@ def run(args, cell, cfg, mix, spec, device, bench, work, t0) -> int:
             with open(os.path.join(out, "job_report.tsv")) as fh:
                 rep = fh.read()
             for key, v in judge_pass(lines, rep, samples[k], want[k],
-                                     db.taxonomy, read_len).items():
+                                     db.taxonomy).items():
                 counts[key] += v
             checked += len(want[k])
     log(f"reference {time.perf_counter() - t:.3f} s, {checked} lines checked")
     if args.trace and not args.control:
         t = time.perf_counter()
-        ctx.k2_bytes = k2_window_bytes(table, samples, passes, mix, settings)
-        log(f"k2 bytes {ctx.k2_bytes} ({time.perf_counter() - t:.3f} s)")
+        ctx.k2_bytes = k2_window_bytes(table, samples, passes, batch_reads,
+                                       batch_bases)
+        log(f"k2 bytes {ctx.k2_bytes} ({time.perf_counter() - t:.3f} s); "
+            f"{ctx.batches} batches")
     del table
     attempted = mix["reads"] * max(len(passes), 1 if args.control else 0)
     failed = counts.get("rows_bad", 0) + counts["lines_mismatched"]
@@ -323,24 +327,18 @@ def run(args, cell, cfg, mix, spec, device, bench, work, t0) -> int:
     return 0
 
 
-def k2_window_bytes(table, samples, passes, mix, settings) -> int:
-    """The least bytes of the window's K2 launches: each sample's batches
-    joined by the reference, times the passes of that sample."""
+def k2_window_bytes(table, samples, passes, batch_reads: int,
+                    batch_bases: int) -> int:
+    """The least bytes of the window's K2 launches: each sample's batches,
+    cut as the program's reader cuts them, joined by the reference, times
+    the passes of that sample."""
     per_sample = {}
-    b = settings["batch_reads"]
     for k in sorted({k for k, _ in passes}):
-        total = 0
         mates = samples[k].mates
-        for a in range(0, mix["reads"], b):
-            rows = [m[a:a + b] for m in mates]
-            L = max(m.shape[1] for m in rows)
-            n = rows[0].shape[0]
-            codes = np.full((n * len(rows), L), 7, np.uint8)
-            for j, m in enumerate(rows):
-                codes[j::len(rows), :m.shape[1]] = reference.metamers.to_codes(m)
-            lens = np.tile(np.asarray([m.shape[1] for m in rows], np.int64), n)
-            total += reference.k2_bytes(table, codes, lens)["bytes"]
-        per_sample[k] = total
+        per_sample[k] = sum(
+            reference.k2_bytes(table, [m.part(a, b) for m in mates])["bytes"]
+            for a, b in reference.cuts(sum(m.lens for m in mates),
+                                       batch_reads, batch_bases))
     return sum(per_sample[k] for k, _ in passes)
 
 

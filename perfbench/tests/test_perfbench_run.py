@@ -1,7 +1,8 @@
 """Whole runs of the harness on a benchmark made of files alone
 (``tiny.py``), on the CPU with the look for a card skipped: the last
-line, a configuration, mix and metric added as files, the faults a run
-must catch, the control, and the exits without a card or a program."""
+line, a configuration, mix and metric added as files, the batches counted
+as the program cut them, the faults a run must catch, the control, and
+the exits without a card or a program."""
 
 import json
 import os
@@ -9,9 +10,11 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import tiny
+from harness import traffic, world
 
 REPO = tiny.REPO
 TIMEOUT = 300
@@ -57,13 +60,27 @@ def test_end_to_end_line(root):
         "perfbench: check reports_mismatched 0 limit 0")
 
 
-def test_traced_line_with_a_metric_added_as_a_file(root):
+def long_batches(seed: int, tmp) -> int:
+    """The batches the program's reader cuts ``tiny.long``'s first sample
+    of ``seed`` into, at ``tiny.BATCH_BASES`` bases."""
+    from metabuli_tpu_torch.io.batch_reader import BatchReader
+
+    g = world.genomes(tiny.LONG["world"])[2]
+    s = traffic.sample(tiny.MIXES["tiny_long"], g, seed, 0)
+    assert np.ptp(s.mates[0].lens) > 300  # drawn lengths
+    (path,) = s.write(str(tmp), "s")
+    with BatchReader(path, None, 1 << 20, tiny.BATCH_BASES) as reader:
+        return sum(1 for _ in reader)
+
+
+def test_traced_line_with_a_metric_added_as_a_file(root, tmp_path):
     res, _ = drive(root, ["--workload", "tiny.long", "--seed", "7",
                           "--seconds", "0", "--trace", "1"])
     assert res["correct"] is True
     m = res["metrics"]
-    # the reader that only the tiny benchmark has, found by its name
-    assert m["batches_seen"]["value"] == 3.0
+    # the reader that only the tiny benchmark has, found by its name: the
+    # batches of the window's one sample, cut by bases
+    assert m["batches_seen"]["value"] == long_batches(7, tmp_path) > 2
     for name in ("main_cpu_ms_per_batch", "finish_ms_per_batch",
                  "match_core_ms_per_batch", "tail_ms_per_batch"):
         assert m[name]["value"] > 0
@@ -80,6 +97,14 @@ def test_a_broken_path_is_not_correct(root, fault):
     assert res["correct"] is False
     assert res["checks"]["lines_mismatched"]["value"] > 0
     assert "limit 0" in err
+
+
+@pytest.mark.parametrize("fault", ["altered", "half"])
+def test_a_broken_long_path_is_not_correct(root, fault):
+    res, _ = drive(root, ["--workload", "tiny.long", "--seed", "13",
+                          "--seconds", "0"], fault=fault)
+    assert res["correct"] is False
+    assert res["checks"]["lines_mismatched"]["value"] > 0
 
 
 def test_jax_in_the_process_no_result(root):
@@ -134,3 +159,26 @@ def test_tiny_cell_on_the_card(root):
     assert res["correct"] is True
     assert res["device"]["platform"] == "gpu"
     assert res["device"]["busy_s"] > 0
+
+
+@pytest.mark.gpu
+def test_tiny_long_cell_on_the_card(root, tmp_path):
+    """Drawn lengths with indels, batches cut by bases: correct, the
+    batches the program's, and the control not correct."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    res, err = drive(root, ["--workload", "tiny.long", "--seed", "5",
+                            "--seconds", "0", "--trace", "1"],
+                     device="cuda")
+    print(err[-2000:])
+    assert res["correct"] is True
+    assert res["device"]["platform"] == "gpu"
+    assert res["metrics"]["batches_seen"]["value"] == \
+        long_batches(5, tmp_path) > 2
+    res, err = drive(root, ["--workload", "tiny.long", "--seed", "5",
+                            "--seconds", "0", "--control", "1"],
+                     device="cuda")
+    print(err[-600:])
+    assert res["correct"] is False

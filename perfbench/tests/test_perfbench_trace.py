@@ -7,7 +7,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from harness import modules, peaks, reference, trace, world
+from harness import modules, peaks, reference, trace, traffic, world
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -123,8 +123,9 @@ def test_k2_bytes_count_each_row_once():
     values = np.array(group + [2**63], np.uint64)  # + the unsearched last row
     taxids = np.array([2, 3, 2, 3], np.uint32)
     table = reference.Table(values, taxids, tax, "cpu")
-    both = np.concatenate([codes, codes])
-    got = reference.k2_bytes(table, both, np.array([read.shape[1]] * 2))
+    both = traffic.Mate(np.concatenate([read[0], read[0]]),
+                        np.array([read.shape[1]] * 2))
+    got = reference.k2_bytes(table, [both])
     n_valid = int(valid.sum()) * 2
     assert got["kmers"] == n_valid
     assert got["group_rows"] == 3

@@ -3,7 +3,13 @@ its own BENCHMARK.json, a configuration, a traffic mix and, beside the
 real metric readers, a metric of its own. ``make(root)`` lays it out;
 ``python perfbench/tests/tiny.py ROOT [--device D] [--fault NAME] -- RUN ARGS`` runs
 the harness on it on the CPU (the look for a card skipped), with one of
-the faults a run must catch planted in the program."""
+the faults a run must catch planted in the program.
+
+``tiny.long`` is single reads of drawn lengths with insertions and
+deletions, batched by ``--batch-reads 0``. The automatic batch ends at
+``BATCH_BASES`` bases here (the program sizes it from device memory, at
+millions of bases), so that its small samples are cut by bases, as a
+long-read sample of real size is on the card."""
 
 from __future__ import annotations
 
@@ -28,15 +34,18 @@ CONFIG = {
 }
 LONG = dict(CONFIG, name="tiny_long", rows=100000,
             world=dict(CONFIG["world"], clades=2, per_clade=2),
-            classify=dict(CONFIG["classify"], seq_mode=3, batch_reads=16))
+            classify=dict(CONFIG["classify"], seq_mode=3, batch_reads=0))
+BATCH_BASES = 4000
 MIXES = {
     "tiny_pe": {"reads": 160, "read_len": 150, "paired": True,
                 "fragment_len": 400, "random_share": 0.1,
                 "reverse_share": 0.5, "sub_rate": 0.005, "samples": 2,
                 "check_reads": 160},
-    "tiny_long": {"reads": 40, "read_len": 900, "paired": False,
-                  "random_share": 0.1, "reverse_share": 0.5,
-                  "sub_rate": 0.01, "samples": 2, "check_reads": 40},
+    "tiny_long": {"reads": 40, "len_mean": 600, "len_sd": 300,
+                  "min_len": 150, "max_len": 1500, "length_seed": 7,
+                  "paired": False, "random_share": 0.1,
+                  "reverse_share": 0.5, "sub_rate": 0.01, "ins_rate": 0.01,
+                  "del_rate": 0.01, "samples": 2, "check_reads": 40},
 }
 # a per-layer metric that no file of the real benchmark has
 NEW_METRIC = '''"""Batches in the window."""
@@ -88,6 +97,19 @@ def make(root: str) -> dict:
     return spec
 
 
+def cut_by_bases() -> None:
+    """The automatic batch ends at ``BATCH_BASES`` bases at the most."""
+    from metabuli_tpu_torch.classify.classifier import Classifier
+
+    real = Classifier._auto_batch
+
+    def auto(self):
+        reads, bases, budget = real(self)
+        return reads, min(bases, BATCH_BASES), budget
+
+    Classifier._auto_batch = auto
+
+
 def plant(fault: str) -> None:
     """Break the program's timed path: ``altered`` changes every eighth
     read's answer where the finish makes it; ``half`` leaves out the second
@@ -133,6 +155,7 @@ if __name__ == "__main__":
         plant(args[1])
         args = args[2:]
     assert args.pop(0) == "--"
+    cut_by_bases()
     import run
 
     sys.exit(run.main(args, device=device, root=root,
