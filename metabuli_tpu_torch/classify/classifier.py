@@ -16,7 +16,10 @@ Batches run in a depth-2 pipeline, as in the reference package: the main
 thread parses, encodes, uploads and dispatches batch i+1 while one worker
 thread finishes batch i on the host; batches are written in order. Stages
 are sized exactly on the device, so there is no warm-up batch and no
-retry.
+retry. A ragged batch (long reads, contigs) goes to the match core in
+blocks of rows sorted by length (``pipeline.length_blocks``), each
+gathered on the host and uploaded to its own longest row; a batch of one
+block (e.g. 8,192 pairs of 150 bp) goes up as the reader made it.
 
 The reduced alphabet (``--reduced-aa 1``) takes the host path (or the log
 path under ``--print-log``) whatever ``--device-tax`` says, as in the
@@ -49,8 +52,9 @@ from ..params import ClassifyParams
 from .chunked import BYTES_PER_ROW, ChunkedIndex, build_chunks
 from .device_taxonomer import DeviceTaxonomer
 from .native_taxonomer import NativeTaxonomer
-from .pipeline import (FIELDS, HostCopy, MatchColumns, build_dev_index,
-                       classify_core, matches_to_host, to_host_async)
+from .pipeline import (FIELDS, Block, HostCopy, MatchColumns,
+                       build_dev_index, classify_blocks, length_blocks,
+                       matches_to_host, to_host_async)
 from .taxonomer import ReadClassification, Taxonomer, TaxonomerParams
 
 # device bytes per 150 bp read of a batch above the resident index: 0.346
@@ -314,7 +318,15 @@ class Classifier:
         QueryIndexer byte-budget analogue, `QueryIndexer.cpp:24-28`): a
         batch ends at whichever it reaches first, so long reads and
         contigs are cut by bases at the bytes per base of a 150 bp read.
-        Reads are independent, so where a batch ends changes no output."""
+        The device bytes follow the padded bases the match core takes,
+        and its length-sorted blocks (``pipeline.length_blocks``) pad a
+        batch by less than ``BLOCK_BASES`` x ln(longest / shortest row)
+        bases (none where its rows share one length; ~17 M for rows of
+        500 bp to 30 kb), whatever its longest read: so a batch stays
+        within ``bytes`` up to that padding, where one matrix padded to
+        its longest row would exceed it by the ratio of its longest row
+        to its mean. Reads are independent, so where a batch ends changes
+        no output."""
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
         else:
@@ -359,31 +371,57 @@ class Classifier:
                      if self.par.mask_mode else reads.codes)
         with self.timer.span("launch", batch):
             self.timer.start()
-            d_codes, d_lens, d_pos, d_qid = (
-                torch.as_tensor(a, device=self.device)
-                for a in (codes, reads.lens, reads.pos, reads.qid))
-            self.timer.mark("upload")
-            host, counts = self._device_stages(d_codes, d_lens, d_pos,
-                                               d_qid, reads.read_lens, plain)
+            blocks = self._upload(codes, reads, batch)
+            host, counts = self._device_stages(blocks, reads.read_lens,
+                                               plain)
             marks = self.timer.stop()
         self.stats["kmers"] += counts["total_kmers"]
         self.stats["matches"] += counts["n_matches"]
         return Job(reads.names, host, counts, reads.read_lens, marks,
                    batch=batch)
 
-    def _device_stages(self, d_codes, d_lens, d_pos, d_qid, read_lens,
-                       plain: bool):
+    def _cut_blocks(self, lens: np.ndarray) -> list[np.ndarray] | None:
+        """The rows of each block of a batch (``pipeline.length_blocks``);
+        None: the batch is one block."""
+        return length_blocks(lens)
+
+    def _upload(self, codes: np.ndarray, reads: ReadBatch,
+                batch: int) -> list[Block]:
+        """A batch's blocks on the device (``--mask-mode 1``'s ``codes``
+        in place of the reader's): each gathered on the host (its rows'
+        codes cut to its longest row, their lengths, position offsets and
+        qids) and copied up inside a ``metabuli.block`` range with the
+        batch's id, each copy's end marked ``upload``. A batch of one
+        block goes up as it is, with no gather. Counts the padded bases
+        and the bases handed to K1 (``build.launches``)."""
+        cut = self._cut_blocks(reads.lens)
+        blocks = []
+        for rows in cut or [None]:
+            with self.timer.span("block", batch, ms=False):
+                if rows is None:
+                    arrays = (codes, reads.lens, reads.pos, reads.qid)
+                else:
+                    lens = reads.lens[rows]  # the longest first
+                    arrays = (codes[rows, :lens[0]], lens, reads.pos[rows],
+                              reads.qid[rows])
+                blocks.append(Block(*(torch.as_tensor(a, device=self.device)
+                                      for a in arrays)))
+                self.timer.mark("upload")
+            build.launches["extract_metamers.padded_bases"] += arrays[0].size
+            build.launches["extract_metamers.bases"] += int(arrays[1].sum())
+        return blocks
+
+    def _device_stages(self, blocks: list[Block], read_lens, plain: bool):
         """A batch's device stages, ending with the copy of their results
         to the host queued: (that ``HostCopy``, the match counters)."""
-        core = dict(cap=self.cap, syncmer=bool(self.par.syncmer),
-                    smer_len=self.par.smer_len, plain=plain, timer=self.timer)
+        m, counts = classify_blocks(
+            self.dev_index, self.d_species, blocks, cap=self.cap,
+            syncmer=bool(self.par.syncmer), smer_len=self.par.smer_len,
+            plain=plain, timer=self.timer)
         if self.mode == "device":
-            handle, counts = self.device_taxonomer.dispatch(
-                self.dev_index, self.d_species, d_codes, d_lens, d_pos,
-                d_qid, read_lens, **core)
+            handle = self.device_taxonomer.tail(m, read_lens, plain=plain,
+                                                timer=self.timer)
             return self.device_taxonomer.start_drain(handle), counts
-        m, counts = classify_core(self.dev_index, self.d_species,
-                                  d_codes, d_lens, d_pos, d_qid, **core)
         return to_host_async(m), counts
 
     def _finish_batch(self, job: Job):

@@ -205,7 +205,9 @@ def chain_matches(qid, species, frame, pos, ham, dna, h16,
     """Kernel K3 wrapper (a warp walks the blocks that start in its window
     of rows in tiles of 32, a lane per row; the kernel finds the blocks
     itself, so there is no host sync). CPU tensors take the plain
-    version."""
+    version. Either way the call's rows count in
+    ``build.launches["chain_matches.matches"]``."""
+    build.launches["chain_matches.matches"] += qid.numel()
     if qid.device.type == "cpu":
         return chain_matches_plain(qid, species, frame, pos, ham, dna, h16,
                                    min_depth_of_species, max_shift=max_shift,

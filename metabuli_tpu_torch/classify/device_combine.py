@@ -143,7 +143,11 @@ def combine_trims_plain(sp: FlatPaths, group_start: torch.Tensor,
 def combine_paths(sp: FlatPaths, group_start: torch.Tensor,
                   read_lens: torch.Tensor) -> torch.Tensor:
     """Kernel K4 wrapper (a thread per group): [G] float32 species
-    scores. CPU tensors take the plain version."""
+    scores. CPU tensors take the plain version. Either way the call's
+    groups and paths count in ``build.launches["combine_paths.groups"]``
+    and ``["combine_paths.paths"]``."""
+    build.launches["combine_paths.groups"] += max(0, group_start.numel() - 1)
+    build.launches["combine_paths.paths"] += sp.read.numel()
     if sp.read.device.type == "cpu":
         return combine_paths_plain(sp, group_start, read_lens)
     build.require_cuda("combine_paths", *sp, group_start, read_lens)

@@ -42,8 +42,11 @@ its d48 does too (``expand_db_dna48``) and the per-codon h16 words take
 the other frame orientation (``(frame < 3) != (kmer_format != 2)``, K2's
 format flag).
 
-``classify_core`` takes a ``DevIndex`` or a ``chunked.ChunkedIndex``,
-whose chunks are copied in one at a time and scanned in turn.
+``classify_blocks`` takes a ``DevIndex`` or a ``chunked.ChunkedIndex``,
+whose chunks are copied in one at a time and scanned in turn, and a
+batch as ``Block``s: a ragged batch's rows in blocks by length
+(``length_blocks``), so that its padded bases follow its bases and not
+its longest read; ``classify_core`` takes one padded matrix as one block.
 
 Every stage is sized exactly from a count read back from the device, so
 none of the reference package's caps, budgets or retry ladder exist here.
@@ -223,7 +226,7 @@ class DevIndex:
                 self.prefix)
 
     def on_device(self, mark=None):
-        """The index as ``classify_core`` scans it: itself (a
+        """The index as ``match_blocks`` scans it: itself (a
         ``ChunkedIndex`` yields its chunks, one copied in at a time)."""
         yield self
 
@@ -549,62 +552,121 @@ def sort_by_keys(keys, cols):
     return [c[order] for c in cols]
 
 
-def match_parts(index, tax2species: torch.Tensor,
-                codes: torch.Tensor, lens: torch.Tensor,
-                pos_offsets: torch.Tensor, qid_offsets: torch.Tensor, *,
-                cap: int, syncmer: bool = False, smer_len: int = 5,
-                plain: bool = False, timer=None):
-    """Encoded reads -> (one unsorted MatchColumns per resident index of
-    ``index``, counters): K1 once, then K2 (K11 on a reduced index) and
-    the fetch against each resident index in turn, a chunked index
-    copying its chunks in one at a time. ``sort_matches`` orders them.
-    ``counts["total_kmers"]`` is a device tensor: reading it waits for
-    the device, so a caller reads it once its next stages are queued.
+# padded bases (rows x the longest row) of a block of the match core's
+# input: a batch of 8,192 2x150 bp pairs is one block
+BLOCK_BASES = 1 << 22
+
+
+class Block(NamedTuple):
+    """Rows of a batch as K1 takes them: base codes [rows, the block's
+    longest row] (INVALID past a row's end), each row's length, position
+    offset and read (qid)."""
+
+    codes: torch.Tensor
+    lens: torch.Tensor
+    pos: torch.Tensor
+    qid: torch.Tensor
+
+
+def length_blocks(lens: np.ndarray, limit: int = BLOCK_BASES
+                  ) -> list[np.ndarray] | None:
+    """A batch's rows (their lengths ``lens``) in blocks for the match
+    core: None where the batch is one block (every row of one length, or
+    rows x longest row within ``limit``), else each block's rows. The rows
+    are ordered by length, longest first (stable), and cut into
+    consecutive blocks of at most ``limit`` padded bases (rows x the
+    block's first, longest row), at least one row a block.
+
+    Each row of a block is at least as long as the next block's first
+    row, so block j pads at most rows_j x (w_j - w_j+1) <= limit x (1 -
+    w_j+1 / w_j) bases, and the batch's padding stays below ``limit`` x
+    ln(longest / shortest row): the padded bases follow the bases, not
+    the longest read."""
+    lens = np.asarray(lens)
+    n = lens.size
+    if n == 0 or lens.min() == lens.max() or n * int(lens.max()) <= limit:
+        return None
+    order = np.argsort(-lens.astype(np.int64), kind="stable")
+    out, a = [], 0
+    while a < n:
+        width = max(1, int(lens[order[a]]))
+        b = min(n, a + max(1, limit // width))
+        out.append(order[a:b])
+        a = b
+    return out
+
+
+def match_blocks(index, tax2species: torch.Tensor, blocks: list[Block], *,
+                 cap: int, syncmer: bool = False, smer_len: int = 5,
+                 plain: bool = False, timer=None):
+    """A batch's blocks -> (one unsorted MatchColumns per block and
+    resident index of ``index``, counters): K1 on every block, then K2
+    (K11 on a reduced index) and the fetch of every block against each
+    resident index in turn, a chunked index copying each chunk in once.
+    ``sort_matches`` orders them. ``counts["total_kmers"]`` is a device
+    tensor: reading it waits for the device, so a caller reads it once
+    its next stages are queued.
 
     ``plain=True`` runs the plain versions of K1 and K2 wherever the
     tensors lie (the kernel-versus-plain check on the card); otherwise the
     kernel wrappers choose by device. ``timer`` (optional) marks stage
-    boundaries (see classifier.StageTimer)."""
+    boundaries (see classifier.StageTimer); each block's marks add to its
+    stage's."""
     mark = timer.mark if timer is not None else (lambda name: None)
     extract = (encode.extract_metamers_plain if plain
                else encode.extract_metamers)
     scan = search_scan_plain if plain else search_scan
     reduced = index.reduced
-    mm = extract(codes, lens, syncmer=syncmer, smer_len=smer_len,
-                 reduced=reduced, kmer_format=index.kmer_format)
-    mark("extract")
-    B, _, W = mm.value.shape
-    q = (mm.value.reshape(-1), mm.valid.reshape(-1),
-         None if reduced else mm.dna48.reshape(-1))
-    q_pos = mm.pos.reshape(-1)
+    queries = []
+    total_kmers = None
+    for b in blocks:
+        mm = extract(b.codes, b.lens, syncmer=syncmer, smer_len=smer_len,
+                     reduced=reduced, kmer_format=index.kmer_format)
+        mark("extract")
+        W = mm.value.shape[2]
+        kmers = mm.valid.sum()
+        total_kmers = kmers if total_kmers is None else total_kmers + kmers
+        queries.append((b, W, (mm.value.reshape(-1), mm.valid.reshape(-1),
+                               None if reduced else mm.dna48.reshape(-1)),
+                        mm.pos.reshape(-1)))
     parts = []
     n_over = 0
     for ix in index.on_device(mark):
-        cand = scan(ix, *q, W, cap)
-        mark("search_scan")
-        tw = ix.taxdna[cand.row.to(torch.int64)]
-        slot = cand.slot.to(torch.int64)
-        read = torch.div(slot, 6 * W, rounding_mode="floor") if W else slot
-        taxid = (tw & 0xFFFFFFFF).to(torch.int32)
-        if reduced:
-            # the full 32-bit codon-number word, as int32 bits
-            dna = srl(tw, 32)
-            dna = (dna - ((dna & 0x80000000) << 1)).to(torch.int32)
-        else:
-            dna = (srl(tw, 32) & 0xFFFFFF).to(torch.int32)
-        pay = cand.pay
-        packed = (pay & 7) | (((pay >> 3) & 7) << 3) | ((pay >> 6) << 11)
-        parts.append(MatchColumns(
-            qid_offsets[read], tax2species[taxid.to(torch.int64)],
-            q_pos[slot] + pos_offsets[read], dna, taxid, packed))
-        n_over += cand.n_over_cap
-        mark("fetch")
+        for b, W, q, q_pos in queries:
+            cand = scan(ix, *q, W, cap)
+            mark("search_scan")
+            tw = ix.taxdna[cand.row.to(torch.int64)]
+            slot = cand.slot.to(torch.int64)
+            read = (torch.div(slot, 6 * W, rounding_mode="floor") if W
+                    else slot)
+            taxid = (tw & 0xFFFFFFFF).to(torch.int32)
+            if reduced:
+                # the full 32-bit codon-number word, as int32 bits
+                dna = srl(tw, 32)
+                dna = (dna - ((dna & 0x80000000) << 1)).to(torch.int32)
+            else:
+                dna = (srl(tw, 32) & 0xFFFFFF).to(torch.int32)
+            pay = cand.pay
+            packed = (pay & 7) | (((pay >> 3) & 7) << 3) | ((pay >> 6) << 11)
+            parts.append(MatchColumns(
+                b.qid[read], tax2species[taxid.to(torch.int64)],
+                q_pos[slot] + b.pos[read], dna, taxid, packed))
+            n_over += cand.n_over_cap
+            mark("fetch")
     counts = {
         "n_matches": sum(int(p.qid.numel()) for p in parts),
         "n_over_cap": n_over,
-        "total_kmers": mm.valid.sum(),
+        "total_kmers": total_kmers,
     }
     return parts, counts
+
+
+def match_parts(index, tax2species: torch.Tensor,
+                codes: torch.Tensor, lens: torch.Tensor,
+                pos_offsets: torch.Tensor, qid_offsets: torch.Tensor, **kw):
+    """``match_blocks`` of one padded matrix taken as one block."""
+    return match_blocks(index, tax2species,
+                        [Block(codes, lens, pos_offsets, qid_offsets)], **kw)
 
 
 def cat_columns(parts) -> MatchColumns:
@@ -635,24 +697,33 @@ def sort_matches(m: MatchColumns, reduced: bool = False) -> MatchColumns:
     return MatchColumns(*sort_by_keys(keys, m))
 
 
-def classify_core(index, tax2species: torch.Tensor,
-                  codes: torch.Tensor, lens: torch.Tensor,
-                  pos_offsets: torch.Tensor, qid_offsets: torch.Tensor, *,
-                  cap: int, syncmer: bool = False, smer_len: int = 5,
-                  plain: bool = False, timer=None):
-    """Encoded reads -> (MatchColumns, counters), against a ``DevIndex``
-    or a ``chunked.ChunkedIndex``: ``match_parts``, then the parts'
-    rows, concatenated in index order, through the one stable sort
-    (``sort_matches``), so a chunked index's order is the single
-    index's."""
-    parts, counts = match_parts(
-        index, tax2species, codes, lens, pos_offsets, qid_offsets, cap=cap,
-        syncmer=syncmer, smer_len=smer_len, plain=plain, timer=timer)
+def classify_blocks(index, tax2species: torch.Tensor, blocks: list[Block],
+                    *, cap: int, syncmer: bool = False, smer_len: int = 5,
+                    plain: bool = False, timer=None):
+    """A batch's blocks -> (MatchColumns, counters), against a
+    ``DevIndex`` or a ``chunked.ChunkedIndex``: ``match_blocks``, then
+    the parts' rows, concatenated, through the one stable sort
+    (``sort_matches``). Rows that tie on every key come from one query
+    slot, which lies in one block and one resident index, so the order is
+    that of one block against the single index."""
+    parts, counts = match_blocks(
+        index, tax2species, blocks, cap=cap, syncmer=syncmer,
+        smer_len=smer_len, plain=plain, timer=timer)
     m = sort_matches(cat_columns(parts), index.reduced)
     if timer is not None:
         timer.mark("sort")
     counts["total_kmers"] = int(counts["total_kmers"])
     return m, counts
+
+
+def classify_core(index, tax2species: torch.Tensor,
+                  codes: torch.Tensor, lens: torch.Tensor,
+                  pos_offsets: torch.Tensor, qid_offsets: torch.Tensor,
+                  **kw):
+    """``classify_blocks`` of one padded matrix taken as one block."""
+    return classify_blocks(index, tax2species,
+                           [Block(codes, lens, pos_offsets, qid_offsets)],
+                           **kw)
 
 
 # the reference package's host match fields (``pipeline.FIELDS`` there)

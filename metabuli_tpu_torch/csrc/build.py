@@ -10,7 +10,9 @@ separate IEEE operation: the chain and combine scores are compared bitwise
 with the reference package's.
 
 Each kernel wrapper counts its launches in ``launches`` (a plain dict of
-ints): a run can then show that it went through the kernels.
+ints): a run can then show that it went through the kernels. Beside them
+the dict counts the shapes of the classify path's kernel calls, from
+sizes the host already knows (no device synchronisation).
 
 The compile runs with ``-Xptxas -v``, which only prints: each kernel's
 registers, static shared memory, stack frame and spill stores and loads
@@ -90,13 +92,21 @@ def label(name: str) -> str:
 # kernel name -> launches since the last reset: K1-K4 of the classify
 # path (K1 of either alphabet), K11 (K2's reduced-alphabet variant), K1
 # for old-format (kmer_format 1) DBs, K12's two scanners (UniRef), then
-# the probes P1-P4 (tools/probes.py)
+# the probes P1-P4 (tools/probes.py). Then "<kernel>.<shape>" counters of
+# the classify path, summed over its calls on either device (the CPU's
+# calls take the plain versions): the padded bases (rows x width) of each
+# block the classifier hands to K1 and those rows' bases (their lengths,
+# from the host's rows where the block is cut), the matches M of each K3
+# call, and the groups G and paths of each K4 call.
 launches = {"extract_metamers": 0, "search_scan": 0, "chain_matches": 0,
             "combine_paths": 0, "search_scan_reduced": 0,
             "extract_metamers_f1": 0, "extract_aa_kmers": 0,
             "extract_aa_kmers_dna": 0,
             "gather_tile_sum": 0, "merge_join_sum": 0, "smoke_double": 0,
-            "stream_sum": 0}
+            "stream_sum": 0,
+            "extract_metamers.padded_bases": 0, "extract_metamers.bases": 0,
+            "chain_matches.matches": 0, "combine_paths.groups": 0,
+            "combine_paths.paths": 0}
 
 _LOCK = threading.Lock()
 _LIB = None

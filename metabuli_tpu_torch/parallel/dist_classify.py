@@ -106,8 +106,13 @@ class ShardedClassifier(Classifier):
                                  batch=batch)._replace(
             first=first)
 
-    def _device_stages(self, d_codes, d_lens, d_pos, d_qid, read_lens,
-                       plain: bool):
+    def _cut_blocks(self, lens: np.ndarray) -> None:
+        """One block a batch: ``sharded_classify`` and ``sharded_fused``
+        take the row's reads as one padded matrix (ROADMAP item 42)."""
+        return None
+
+    def _device_stages(self, blocks, read_lens, plain: bool):
+        [(d_codes, d_lens, d_pos, d_qid)] = blocks
         core = dict(cap=self.cap, syncmer=bool(self.par.syncmer),
                     smer_len=self.par.smer_len, plain=plain, timer=self.timer)
         args = (self.mesh, self.dev_index, self.d_species)
