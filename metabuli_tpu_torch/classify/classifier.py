@@ -14,12 +14,14 @@ then one of the reference package's three taxonomer paths:
 
 Batches run in a depth-2 pipeline, as in the reference package: the main
 thread parses, encodes, uploads and dispatches batch i+1 while one worker
-thread finishes batch i on the host; batches are written in order. Stages
-are sized exactly on the device, so there is no warm-up batch and no
-retry. A ragged batch (long reads, contigs) goes to the match core in
-blocks of rows sorted by length (``pipeline.length_blocks``), each
-gathered on the host and uploaded to its own longest row; a batch of one
-block (e.g. 8,192 pairs of 150 bp) goes up as the reader made it.
+thread finishes batch i on the host; batches are written in order, each
+from its result columns (``BatchResult``) by the native line writer
+(``io/line_writer.py``), with no Python object a read on the device
+path. Stages are sized exactly on the device, so there is no warm-up
+batch and no retry. A ragged batch (long reads, contigs) goes to the
+match core in blocks of rows sorted by length (``pipeline.length_blocks``),
+each gathered on the host and uploaded to its own longest row; a batch
+of one block (e.g. 8,192 pairs of 150 bp) goes up as the reader made it.
 
 The reduced alphabet (``--reduced-aa 1``) takes the host path (or the log
 path under ``--print-log``) whatever ``--device-tax`` says, as in the
@@ -47,8 +49,10 @@ import torch
 from ..csrc import build
 from ..db.index import MetamerIndex
 from ..io.batch_reader import BatchReader, ReadBatch
+from ..io.line_writer import LineWriter
 from ..io.report import Reporter
 from ..params import ClassifyParams
+from .batch_result import BatchReads, BatchResult
 from .chunked import BYTES_PER_ROW, ChunkedIndex, build_chunks
 from .device_taxonomer import DeviceTaxonomer
 from .native_taxonomer import NativeTaxonomer
@@ -263,6 +267,7 @@ class Classifier:
                     tp, self.taxonomy, threads=params.threads)
             self.reporter = Reporter(self.taxonomy,
                                      bool(params.print_lineage))
+            self.writer = LineWriter(self.reporter)
 
             # Reference quirk kept for bit-identity
             # (`KmerMatcher.cpp:363-406`): the last k-mer of the database
@@ -357,7 +362,7 @@ class Classifier:
         job = self._dispatch(reads, plain=plain)
         results, _ = self._finish_batch(job)
         self.timer.resolve(job.marks)
-        return results
+        return list(results)
 
     def _dispatch(self, reads: ReadBatch, plain: bool = False,
                   batch: int = 0) -> Job:
@@ -427,9 +432,10 @@ class Classifier:
     def _finish_batch(self, job: Job):
         """Wait for a batch's copy and finish its reads on the host (the
         pipeline's worker; launches no CUDA work and changes no shared
-        state). Returns the results, the host clock at its start, at the
-        end of the wait and at the end of the taxonomer call, and this
-        thread's CPU seconds in that call."""
+        state). Returns the results (``BatchReads``: the device
+        taxonomer's columns, or the host or log taxonomer's objects), the
+        host clock at its start, at the end of the wait and at the end of
+        the taxonomer call, and this thread's CPU seconds in that call."""
         t0 = time.perf_counter()
         cols = job.host.wait()
         n_reads = len(job.names)
@@ -441,9 +447,9 @@ class Classifier:
                 results = self.device_taxonomer.drain(
                     job.host, job.read_lens, n_reads)
             else:
-                results = self._assign(
+                results = BatchReads(objects=self._assign(
                     matches_to_host(MatchColumns(*cols), job.counts),
-                    job.read_lens)
+                    job.read_lens))
         return results, (t0, t1, time.perf_counter(),
                          time.thread_time() - cpu)
 
@@ -469,21 +475,39 @@ class Classifier:
             out.append(self.taxonomer.choose_best_taxon(sub, rl))
         return out
 
-    def _emit_batch(self, fh, job: Job, results, tax_counts, total_reads,
-                    first, mappings, all_results):
-        """Write one batch's classifications + accumulate clade counts/EM."""
-        self.stats["reads"] += len(job.names)
-        rows_out = list(zip(job.names, results, job.read_lens.tolist()))
-        self.reporter.write_classifications(fh, rows_out, first=first)
-        for rc in results:
-            t = rc.taxid if rc.is_classified else 0
-            tax_counts[t] = tax_counts.get(t, 0) + 1
+    def _write_lines(self, fh, results: BatchReads, names: list,
+                     read_lens: np.ndarray, *, first: bool = False,
+                     index_base: int | None = None) -> BatchResult:
+        """Write a batch's lines (``LineWriter.write``) from its columns.
+        Counts the lines in ``write_lines.lines``, those whose reads'
+        objects exist also in ``write_lines.object_lines``; returns the
+        columns."""
+        cols = results.columns()
+        self.writer.write(fh, cols, names, read_lens, first=first,
+                          index_base=index_base)
+        build.launches["write_lines.lines"] += len(names)
+        if results.made:
+            build.launches["write_lines.object_lines"] += len(names)
+        return cols
+
+    def _emit_batch(self, fh, job: Job, results: BatchReads, tax_counts,
+                    total_reads, first, mappings, all_results):
+        """Write one batch's classifications (``LineWriter``) and add its
+        reads to the clade counts; under --em, its mappings and its
+        (name, ``ReadClassification``, length) rows to the EM step's."""
+        n = len(job.names)
+        self.stats["reads"] += n
+        made = results.made
+        cols = self._write_lines(fh, results, job.names, job.read_lens,
+                                 first=first)
+        cols.clade_counts(tax_counts)
         if self.par.em:
-            for i, rc in enumerate(results):
-                for sp, sc in rc.species_scores:
-                    mappings.append((total_reads + i, sp, sc))
-            all_results.extend(rows_out)
-        return total_reads + len(job.names), False
+            if not made:  # the EM step's objects, made here
+                build.launches["write_lines.object_lines"] += n
+            mappings.extend(cols.mappings(total_reads))
+            all_results.extend(zip(job.names, results,
+                                   job.read_lens.tolist()))
+        return total_reads + n, False
 
     def _run_batches(self, batches, emit) -> dict:
         """Run ``batches`` (``ReadBatch``es) through the depth-2
@@ -603,7 +627,7 @@ class Classifier:
                 all_results)
 
         t_run, cpu_run = time.perf_counter(), time.thread_time()
-        with (open(cls_path, "a" if skip else "w") as fh,
+        with (open(cls_path, "ab" if skip else "wb") as fh,
               self._iter_batches(q1, q2, skip=skip) as reader):
             run = self._run_batches(reader, emit)
 

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .batch_result import BatchReads, BatchResult
 from .device_chain import chain_matches, chain_matches_plain
 from .device_combine import combine_paths, combine_paths_plain, sort_paths
 from .device_compact import compact_groups, compact_paths
@@ -27,7 +28,7 @@ from .device_redundancy import device_taxonomy, quotient_best
 from .native_taxonomer import NativeTaxonomer
 from .pipeline import (HostCopy, MatchColumns, classify_core, sort_by_keys,
                        to_host_async)
-from .taxonomer import ReadClassification, TaxonomerParams
+from .taxonomer import TaxonomerParams
 
 
 class TaxCounts(NamedTuple):
@@ -132,20 +133,27 @@ class DeviceTaxonomer:
         groups, taxcnt = handle
         return to_host_async([*groups, *taxcnt])
 
-    def drain(self, host: HostCopy, read_lens_by_qid: np.ndarray,
-              n_reads: int):
+    def drain_columns(self, host: HostCopy, read_lens_by_qid: np.ndarray,
+                      n_reads: int) -> BatchResult:
         """Wait for a ``start_drain`` copy and finish the batch on the
-        host; launches no CUDA work, so it may run on a worker thread
+        host: its ``BatchResult``, straight from the native finish's
+        buffers. Launches no CUDA work, so it may run on a worker thread
         beside the next batch's dispatch."""
         g = [t.numpy() for t in host.wait()]
-        results = [ReadClassification() for _ in range(n_reads)]
         if len(g[0]) == 0:
-            return results
+            return BatchResult.empty(n_reads)
         return self._finish(g[0], g[1], g[2].astype(np.float32), *g[3:],
-                            read_lens_by_qid, n_reads, results)
+                            read_lens_by_qid, n_reads)
+
+    def drain(self, host: HostCopy, read_lens_by_qid: np.ndarray,
+              n_reads: int) -> BatchReads:
+        """``drain_columns`` as a ``ReadClassification`` a read, made
+        when a caller first asks for one (``BatchReads``)."""
+        return BatchReads(self.drain_columns(host, read_lens_by_qid,
+                                             n_reads))
 
     def _finish(self, g_read, g_sp, g_score, run_read, run_sp, run_tax,
-                run_cnt, read_lens_by_qid, n_reads, results):
+                run_cnt, read_lens_by_qid, n_reads) -> BatchResult:
         """Host finish through the native library (OpenMP): per-read
         species selection (ties -> LCA), min-score branches, below-species
         BFS (`chooseBestTaxon`, `Taxonomer.cpp:130-202`). Its output
@@ -200,18 +208,7 @@ class DeviceTaxonomer:
         )
         if rc != 0:
             raise RuntimeError(f"native taxonomer_finish returned {rc}")
-        for i in range(n_reads):
-            res = results[i]
-            res.is_classified = bool(out_cls[i])
-            res.taxid = int(out_taxid[i])
-            res.score = float(out_score[i])
-        for k in range(int(tc_used.value)):
-            results[int(tc_read[k])].tax_counts[int(tc_tax[k])] = int(
-                tc_cnt[k]
-            )
-        for k in range(int(mp_used.value)):
-            res = results[int(mp_read[k])]
-            res.species_scores.append((int(mp_sp[k]), float(mp_score[k])))
-            if not res.top_species:
-                res.top_species = int(mp_sp[k])
-        return results
+        tc, mp = int(tc_used.value), int(mp_used.value)
+        return BatchResult(out_cls, out_taxid, out_score, tc_read[:tc],
+                           tc_tax[:tc], tc_cnt[:tc], mp_read[:mp],
+                           mp_sp[:mp], mp_score[:mp])

@@ -97,7 +97,11 @@ def label(name: str) -> str:
 # calls take the plain versions): the padded bases (rows x width) of each
 # block the classifier hands to K1 and those rows' bases (their lengths,
 # from the host's rows where the block is cut), the matches M of each K3
-# call, and the groups G and paths of each K4 call.
+# call, and the groups G and paths of each K4 call. Last, the
+# classification lines the native line writer wrote
+# (``io/line_writer.py``), and of those the lines whose reads had a
+# ``ReadClassification`` made (the host and --print-log taxonomers',
+# --em's).
 launches = {"extract_metamers": 0, "search_scan": 0, "chain_matches": 0,
             "combine_paths": 0, "search_scan_reduced": 0,
             "extract_metamers_f1": 0, "extract_aa_kmers": 0,
@@ -106,7 +110,8 @@ launches = {"extract_metamers": 0, "search_scan": 0, "chain_matches": 0,
             "stream_sum": 0,
             "extract_metamers.padded_bases": 0, "extract_metamers.bases": 0,
             "chain_matches.matches": 0, "combine_paths.groups": 0,
-            "combine_paths.paths": 0}
+            "combine_paths.paths": 0, "write_lines.lines": 0,
+            "write_lines.object_lines": 0}
 
 _LOCK = threading.Lock()
 _LIB = None

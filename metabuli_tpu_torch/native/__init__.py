@@ -3,7 +3,9 @@
 The sources live here, byte-identical copies of the reference package's
 ``metabuli_tpu/native/*.cpp`` that the port calls (the taxonomer finish,
 tantan masking, gene prediction with the Prodigal port, FASTX parsing,
-key sorts), built with the reference package's flags into this package's
+key sorts), and the port's own batch reader and line writer
+(``batch_reader.cpp``, ``line_writer.cpp``), built with the reference
+package's flags into this package's
 git-ignored build directory; nothing is written next to the sources. A
 failed build raises: the port has no pure-Python fallback for the
 taxonomer finish or the gene predictor.
@@ -33,7 +35,8 @@ SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 SRCS = [os.path.join(SRC_DIR, name) for name in
         ("taxonomer.cpp", "masker.cpp", "genepred.cpp", "prodigal.cpp",
-         "fastx.cpp", "sortkeys.cpp", "batch_reader.cpp")]
+         "fastx.cpp", "sortkeys.cpp", "batch_reader.cpp",
+         "line_writer.cpp")]
 _SO = os.path.join(BUILD_DIR, "libmetabuli_native.so")
 SANITIZE_ENV = "METABULI_TPU_SANITIZE"
 
@@ -86,6 +89,14 @@ def _declare_batch_reader(lib) -> None:
     lib.br_fill.restype = i64
 
 
+def _declare_line_writer(lib) -> None:
+    """The C interface of ``line_writer.cpp`` (``io/line_writer.py``)."""
+    i32, i64, ptr = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
+    lib.write_lines.argtypes = [i64, *[ptr] * 6, i64, *[ptr] * 3, i32,
+                                *[ptr] * 7, i32, i64, ptr, i64]
+    lib.write_lines.restype = i64
+
+
 def get_lib():
     """Load the native library, building it first if needed (raises on a
     failed build)."""
@@ -96,5 +107,6 @@ def get_lib():
             lib.taxonomer_assign.restype = ctypes.c_int64
             lib.taxonomer_finish.restype = ctypes.c_int64
             _declare_batch_reader(lib)
+            _declare_line_writer(lib)
             _LIB = lib
         return _LIB

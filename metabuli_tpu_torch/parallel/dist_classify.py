@@ -38,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from ..classify.batch_result import BatchReads
 from ..classify.classifier import Classifier, Job
 from ..classify.pipeline import to_host_async
 from ..csrc import build
@@ -135,10 +136,10 @@ class ShardedClassifier(Classifier):
         """The batch's results of the reads this process writes."""
         if job.host is None:
             t = time.perf_counter()
-            return [], (t, t, t, 0.0)
+            return BatchReads(objects=[]), (t, t, t, 0.0)
         own = self._own(len(job.names))
         results, clock = super()._finish_batch(job)
-        return results[own.start:own.stop], clock
+        return results.take(own.start, own.stop), clock
 
     def classify_file(self, q1: str, q2: str | None, out_dir: str,
                       job_id: str, resume: bool = False) -> dict:
@@ -147,16 +148,16 @@ class ShardedClassifier(Classifier):
         mesh = self.mesh
         os.makedirs(out_dir, exist_ok=True)
         part = os.path.join(out_dir, f".{job_id}_part{mesh.rank}.tsv")
-        row = self.reporter.classification_row
 
         def emit(job, results):
-            read_lens = job.read_lens.tolist()
-            for i, rc in zip(self._own(len(job.names)), results):
-                fh.write(f"{job.first + i}\t"
-                         + row(job.names[i], rc, read_lens[i]))
+            # each line after its read's global index and a tab
+            own = self._own(len(job.names))
+            self._write_lines(fh, results, job.names[own.start:own.stop],
+                              job.read_lens[own.start:own.stop],
+                              index_base=job.first + own.start)
 
         t_run = time.perf_counter()
-        with (open(part, "w") as fh,
+        with (open(part, "wb") as fh,
               self._iter_batches(q1, q2) as reader):
             run = self._run_batches(reader, emit)
         classify_s = time.perf_counter() - t_run
