@@ -543,7 +543,7 @@ def kernel_phase(clf, reads, out, phase="kernels", shape=None,
         k, return_counts=True)[1].max()) if k.numel() else 0
     frame, ham = m.packed & 7, (m.packed >> 3) & 0xFF
     h16 = (m.packed >> 11) & 0xFFFF
-    dtx = clf.device_taxonomer
+    dtx = clf.taxonomer
     cargs = (m.qid, m.species, frame, m.pos, ham, m.dna, h16, dtx.min_depth)
     kw = dict(max_shift=dtx.p.max_codon_shift)
     # K3 loads each of its seven int32 columns per row and the int32

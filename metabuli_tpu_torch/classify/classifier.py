@@ -3,14 +3,17 @@
 Counterpart of ``metabuli_tpu.classify.classifier`` (`Classifier.cpp:44-164`):
 reads stream in batches (short reads, pairs, or long reads and contigs
 with ``--seq-mode 3``); each batch runs the match core on the device and
-then one of the reference package's three taxonomer paths:
+then one of the reference package's three taxonomer paths, chosen once
+and kept as ``taxonomer``, whose ``send`` ends the device stages and
+whose ``drain`` finishes the batch on the host:
 
-  device  (the default) the taxonomer stages on the device, the native
-          ``taxonomer_finish`` on the host;
-  host    (``--device-tax 0``) the sorted matches to the host, the native
-          ``taxonomer_assign``;
-  log     (``--print-log``) the sorted matches to the host, the Python
-          ``Taxonomer`` per read, which prints each species' match paths.
+  device  (the default, ``DeviceTaxonomer``) the taxonomer stages on the
+          device, the native ``taxonomer_finish`` on the host;
+  host    (``--device-tax 0``, ``HostTaxonomer``) the sorted matches to
+          the host, the native ``taxonomer_assign``;
+  log     (``--print-log``, ``LogTaxonomer``) the sorted matches to the
+          host, the Python ``Taxonomer`` per read, which prints each
+          species' match paths.
 
 Batches run in a depth-2 pipeline, as in the reference package: the main
 thread parses, encodes, uploads and dispatches batch i+1 while one worker
@@ -29,9 +32,6 @@ reference package: the device taxonomer's stages assume the standard
 codon layout. A DB over ``--max-ram``, or whose index build would not fit
 the card's free memory, streams through the card in AA-aligned chunks
 (``chunked.ChunkedIndex``).
-
-Paths that are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item; none is taken quietly.
 """
 
 from __future__ import annotations
@@ -55,23 +55,16 @@ from ..params import ClassifyParams
 from .batch_result import BatchReads, BatchResult
 from .chunked import BYTES_PER_ROW, ChunkedIndex, build_chunks
 from .device_taxonomer import DeviceTaxonomer
-from .native_taxonomer import NativeTaxonomer
-from .pipeline import (FIELDS, Block, HostCopy, MatchColumns,
-                       build_dev_index, classify_blocks, length_blocks,
-                       matches_to_host, to_host_async)
-from .taxonomer import ReadClassification, Taxonomer, TaxonomerParams
+from .host_taxonomers import HostTaxonomer, LogTaxonomer
+from .pipeline import (Block, HostCopy, build_dev_index, classify_blocks,
+                       length_blocks)
+from .taxonomer import ReadClassification, TaxonomerParams
 
 # device bytes per 150 bp read of a batch above the resident index: 0.346
 # GiB for 8,192 reads, measured on the same card and DB; an automatic
 # batch also ends at these bytes per base (long reads, contigs)
 BATCH_BYTES_PER_READ = 45_400
 BATCH_READ_LEN = 150
-
-
-def not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to metabuli_tpu_torch yet "
-        f"(ROADMAP.md Queue 1, {item}); use metabuli_tpu for it")
 
 
 def mask_rows(reads: ReadBatch, prob: float) -> np.ndarray:
@@ -184,13 +177,12 @@ class StageTimer:
 
 class Job(NamedTuple):
     """One dispatched batch: its reads' names, the copy of its device
-    results in flight to the host, its counters, its reads' lengths, its
-    stage marks, the run's index of its first read and the batch's id (its
-    index in the run)."""
+    results in flight to the host, its reads' lengths, its stage marks,
+    the run's index of its first read and the batch's id (its index in the
+    run)."""
 
     names: list
     host: HostCopy
-    counts: dict
     read_lens: np.ndarray
     marks: list
     first: int = 0
@@ -255,16 +247,14 @@ class Classifier:
             self.mode = ("log" if params.print_log else
                          "device" if params.device_tax and not reduced
                          else "host")
-            self.taxonomer = self.device_taxonomer = None
-            self.native_taxonomer = None
             if self.mode == "log":
-                self.taxonomer = Taxonomer(tp, self.taxonomy)
+                self.taxonomer = LogTaxonomer(tp, self.taxonomy)
             elif self.mode == "device":
-                self.device_taxonomer = DeviceTaxonomer(
+                self.taxonomer = DeviceTaxonomer(
                     tp, self.taxonomy, self.device, threads=params.threads)
-            elif self.mode == "host":
-                self.native_taxonomer = NativeTaxonomer(
-                    tp, self.taxonomy, threads=params.threads)
+            else:
+                self.taxonomer = HostTaxonomer(tp, self.taxonomy,
+                                               threads=params.threads)
             self.reporter = Reporter(self.taxonomy,
                                      bool(params.print_lineage))
             self.writer = LineWriter(self.reporter)
@@ -382,8 +372,7 @@ class Classifier:
             marks = self.timer.stop()
         self.stats["kmers"] += counts["total_kmers"]
         self.stats["matches"] += counts["n_matches"]
-        return Job(reads.names, host, counts, reads.read_lens, marks,
-                   batch=batch)
+        return Job(reads.names, host, reads.read_lens, marks, batch=batch)
 
     def _cut_blocks(self, lens: np.ndarray) -> list[np.ndarray] | None:
         """The rows of each block of a batch (``pipeline.length_blocks``);
@@ -418,62 +407,30 @@ class Classifier:
 
     def _device_stages(self, blocks: list[Block], read_lens, plain: bool):
         """A batch's device stages, ending with the copy of their results
-        to the host queued: (that ``HostCopy``, the match counters)."""
+        to the host queued (the taxonomer's ``send``): (that
+        ``HostCopy``, the match counters)."""
         m, counts = classify_blocks(
             self.dev_index, self.d_species, blocks, cap=self.cap,
             syncmer=bool(self.par.syncmer), smer_len=self.par.smer_len,
             plain=plain, timer=self.timer)
-        if self.mode == "device":
-            handle = self.device_taxonomer.tail(m, read_lens, plain=plain,
-                                                timer=self.timer)
-            return self.device_taxonomer.start_drain(handle), counts
-        return to_host_async(m), counts
+        return self.taxonomer.send(m, read_lens, plain=plain,
+                                   timer=self.timer), counts
 
     def _finish_batch(self, job: Job):
         """Wait for a batch's copy and finish its reads on the host (the
         pipeline's worker; launches no CUDA work and changes no shared
-        state). Returns the results (``BatchReads``: the device
-        taxonomer's columns, or the host or log taxonomer's objects), the
-        host clock at its start, at the end of the wait and at the end of
-        the taxonomer call, and this thread's CPU seconds in that call."""
-        t0 = time.perf_counter()
-        cols = job.host.wait()
-        n_reads = len(job.names)
+        state). Returns the results (the taxonomer's ``drain``: a
+        ``BatchReads``), the host clock at the end of the wait and at the
+        end of the taxonomer call, and this thread's CPU seconds in that
+        call."""
+        job.host.wait()
         t1 = time.perf_counter()
         cpu = time.thread_time()
         # the range alone: done() adds the taxonomer call to "finish"
         with self.timer.span("finish", job.batch, ms=False):
-            if self.mode == "device":
-                results = self.device_taxonomer.drain(
-                    job.host, job.read_lens, n_reads)
-            else:
-                results = BatchReads(objects=self._assign(
-                    matches_to_host(MatchColumns(*cols), job.counts),
-                    job.read_lens))
-        return results, (t0, t1, time.perf_counter(),
-                         time.thread_time() - cpu)
-
-    def _assign(self, m: dict, read_lens: np.ndarray
-                ) -> list[ReadClassification]:
-        """The reference package's host taxonomer (``_assign_batch``):
-        per-read match ranges of the sorted rows, then the native
-        ``taxonomer_assign``, or (``--print-log``) the Python taxonomer
-        read by read."""
-        reads = np.arange(len(read_lens))
-        starts = np.searchsorted(m["qid"], reads, side="left")
-        ends = np.searchsorted(m["qid"], reads, side="right")
-        if self.mode == "host":
-            return self.native_taxonomer.assign_batch(m, starts, ends,
-                                                      read_lens)[0]
-        out = []
-        for lo, hi, rl in zip(starts.tolist(), ends.tolist(),
-                              read_lens.tolist()):
-            if lo == hi:
-                out.append(ReadClassification(score=0.0))
-                continue
-            sub = {k: m[k][lo:hi] for k in FIELDS}
-            out.append(self.taxonomer.choose_best_taxon(sub, rl))
-        return out
+            results = self.taxonomer.drain(job.host, job.read_lens,
+                                           len(job.names))
+        return results, (t1, time.perf_counter(), time.thread_time() - cpu)
 
     def _write_lines(self, fh, results: BatchReads, names: list,
                      read_lens: np.ndarray, *, first: bool = False,
@@ -531,7 +488,7 @@ class Classifier:
 
         def done(job, results, clock):
             nonlocal finish_cpu
-            t0, t1, t2, cpu = clock
+            t1, t2, cpu = clock
             spans["finish"].append((t1, t2))
             finish_cpu += cpu
             self.timer.resolve(job.marks)
@@ -545,7 +502,7 @@ class Classifier:
                 if job.host is not None:
                     job.host.tensors.clear()
 
-        pool = (None if self.mode == "log" else
+        pool = (None if self.taxonomer.serial else
                 ThreadPoolExecutor(1, thread_name_prefix="metabuli-finish"))
         try:
             inflight = None

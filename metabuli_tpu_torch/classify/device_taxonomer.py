@@ -26,8 +26,7 @@ from .device_combine import combine_paths, combine_paths_plain, sort_paths
 from .device_compact import compact_groups, compact_paths
 from .device_redundancy import device_taxonomy, quotient_best
 from .native_taxonomer import NativeTaxonomer
-from .pipeline import (HostCopy, MatchColumns, classify_core, sort_by_keys,
-                       to_host_async)
+from .pipeline import HostCopy, MatchColumns, sort_by_keys, to_host_async
 from .taxonomer import TaxonomerParams
 
 
@@ -80,7 +79,12 @@ def taxonomer_tail(m: MatchColumns, dt, min_depth: torch.Tensor,
 
 
 class DeviceTaxonomer:
-    """Batch taxonomer on the device; the host finishes per read."""
+    """Batch taxonomer on the device; the host finishes per read. The
+    classifier's default taxonomer: ``send`` ends a batch's device stages
+    and ``drain`` finishes it on a worker thread (``host_taxonomers``
+    holds the other two)."""
+
+    serial = False
 
     def __init__(self, params: TaxonomerParams, taxonomy, device="cpu",
                  threads: int = 0):
@@ -102,18 +106,6 @@ class DeviceTaxonomer:
             euk, params.min_cons_cnt_euk, params.min_cons_cnt
         ).astype(np.int32), device=self.device)
 
-    def dispatch(self, index, d_species, codes, lens, pos_offsets,
-                 qid_offsets, read_lens_by_qid, *, cap: int, syncmer: bool,
-                 smer_len: int, plain: bool = False, timer=None):
-        """Run the device stages of one batch: match core + tail.
-        Returns the handle ``drain`` finishes, plus the match counters."""
-        m, counts = classify_core(
-            index, d_species, codes, lens, pos_offsets, qid_offsets,
-            cap=cap, syncmer=syncmer, smer_len=smer_len, plain=plain,
-            timer=timer)
-        return self.tail(m, read_lens_by_qid, plain=plain,
-                         timer=timer), counts
-
     def tail(self, m: MatchColumns, read_lens_by_qid, *, plain: bool = False,
              timer=None):
         """``taxonomer_tail`` of sorted match columns with this
@@ -126,6 +118,12 @@ class DeviceTaxonomer:
             m, self.dt, self.min_depth, rl, dna_shift=self.p.dna_shift,
             max_shift=self.p.max_codon_shift, kmer_format=self.p.kmer_format,
             plain=plain, timer=timer)
+
+    def send(self, m: MatchColumns, read_lens_by_qid, *, plain: bool = False,
+             timer=None) -> HostCopy:
+        """End a batch's device stages: ``tail``, then ``start_drain``."""
+        return self.start_drain(self.tail(m, read_lens_by_qid, plain=plain,
+                                          timer=timer))
 
     def start_drain(self, handle) -> HostCopy:
         """End a batch's dispatch: queue the copies of the small group and

@@ -661,14 +661,6 @@ def match_blocks(index, tax2species: torch.Tensor, blocks: list[Block], *,
     return parts, counts
 
 
-def match_parts(index, tax2species: torch.Tensor,
-                codes: torch.Tensor, lens: torch.Tensor,
-                pos_offsets: torch.Tensor, qid_offsets: torch.Tensor, **kw):
-    """``match_blocks`` of one padded matrix taken as one block."""
-    return match_blocks(index, tax2species,
-                        [Block(codes, lens, pos_offsets, qid_offsets)], **kw)
-
-
 def cat_columns(parts) -> MatchColumns:
     """Match columns of several parts, concatenated in order."""
     if len(parts) == 1:
@@ -730,11 +722,12 @@ def classify_core(index, tax2species: torch.Tensor,
 FIELDS = ("qid", "species", "frame", "pos", "hamming", "dna", "taxid", "h16")
 
 
-def matches_to_host(m: MatchColumns, counts: dict) -> dict:
+def matches_to_host(m: MatchColumns) -> dict:
     """Sorted match columns on the host -> the reference package's host
     match dict (``matches_to_host`` / ``_unpack_match_data`` for its
     5-word layout): ``FIELDS`` as int32 numpy arrays, frame, hamming and
-    h16 unpacked from ``packed``, plus the counters. The rows are in the
+    h16 unpacked from ``packed``, and ``n_matches``; without the match
+    core's counters, which no taxonomer reads. The rows are in the
     reference order already (the device sort equals its lexsort), so the
     dict is marked ``sorted``."""
     col = lambda t: t.numpy().astype(np.int32, copy=False)
@@ -743,8 +736,7 @@ def matches_to_host(m: MatchColumns, counts: dict) -> dict:
            "frame": packed & 7, "pos": col(m.pos),
            "hamming": (packed >> 3) & 0xFF, "dna": col(m.dna),
            "taxid": col(m.taxid), "h16": (packed >> 11) & 0xFFFF}
-    out.update(n_matches=len(packed), n_over_cap=counts["n_over_cap"],
-               total_kmers=counts["total_kmers"], sorted=True)
+    out.update(n_matches=len(packed), sorted=True)
     return out
 
 

@@ -40,7 +40,6 @@ import torch
 
 from ..classify.batch_result import BatchReads
 from ..classify.classifier import Classifier, Job
-from ..classify.pipeline import to_host_async
 from ..csrc import build
 from ..io.batch_reader import ReadBatch
 from ..params import ClassifyParams
@@ -101,31 +100,25 @@ class ShardedClassifier(Classifier):
         reads, lo = dist.distribute_reads(reads, self.mesh, self.per_row)
         first += lo
         if not reads.names:
-            return Job([], None, {}, np.zeros(0, np.int32), [], first,
-                       batch)
+            return Job([], None, np.zeros(0, np.int32), [], first, batch)
         return super()._dispatch(reads, plain=plain,
                                  batch=batch)._replace(
             first=first)
 
-    def _cut_blocks(self, lens: np.ndarray) -> None:
-        """One block a batch: ``sharded_classify`` and ``sharded_fused``
-        take the row's reads as one padded matrix (ROADMAP item 42)."""
-        return None
-
     def _device_stages(self, blocks, read_lens, plain: bool):
-        [(d_codes, d_lens, d_pos, d_qid)] = blocks
         core = dict(cap=self.cap, syncmer=bool(self.par.syncmer),
                     smer_len=self.par.smer_len, plain=plain, timer=self.timer)
         args = (self.mesh, self.dev_index, self.d_species)
-        reads = (d_codes, d_lens, d_pos, d_qid)
         own = self._own(len(read_lens))
         if self.route == "plain":
-            m, counts = sharded_classify(*args, *reads, **core)
-            return (to_host_async(m) if own else None), counts
-        dtx, budget = self.device_taxonomer, self.a2a_budget
+            m, counts = sharded_classify(*args, blocks, **core)
+            return (self.taxonomer.send(m, read_lens, plain=plain,
+                                        timer=self.timer)
+                    if own else None), counts
+        dtx, budget = self.taxonomer, self.a2a_budget
         while True:
             [(handle, counts)] = sharded_fused(
-                *args, dtx, read_lens, *reads, route=self.route,
+                *args, dtx, read_lens, blocks, route=self.route,
                 a2a_budget=budget, **core)
             if not counts.get("tax_overflow", 0) & A2A_OVERFLOW:
                 break
@@ -136,7 +129,7 @@ class ShardedClassifier(Classifier):
         """The batch's results of the reads this process writes."""
         if job.host is None:
             t = time.perf_counter()
-            return BatchReads(objects=[]), (t, t, t, 0.0)
+            return BatchReads(objects=[]), (t, t, 0.0)
         own = self._own(len(job.names))
         results, clock = super()._finish_batch(job)
         return results.take(own.start, own.stop), clock

@@ -36,8 +36,8 @@ import numpy as np
 import torch
 
 from ..classify.chunked import chunk_bounds
-from ..classify.pipeline import (MatchColumns, build_dev_index, cat_columns,
-                                 match_parts, sort_matches)
+from ..classify.pipeline import (Block, MatchColumns, build_dev_index,
+                                 cat_columns, match_blocks, sort_matches)
 
 INT32_MAX = 2**31 - 1
 # counts["tax_overflow"] bit of the all_to_all route: a segment of the
@@ -239,20 +239,20 @@ def unstack_columns(rows: torch.Tensor) -> MatchColumns:
     return MatchColumns(*rows.unbind(1))
 
 
-def sharded_classify(mesh: Mesh, shards: Shards, t2s, codes, lens,
-                     pos_offsets, qid_offsets, *, cap: int,
-                     syncmer: bool = False, smer_len: int = 5,
+def sharded_classify(mesh: Mesh, shards: Shards, t2s, blocks: list[Block],
+                     *, cap: int, syncmer: bool = False, smer_len: int = 5,
                      plain: bool = False, timer=None):
     """The sharded classify step (``build_sharded_classify``): this
-    process's shards' matches for its data row's reads (K1 once, K2 and
-    the fetch per shard), the db axis's gather of the match columns and
-    the one merge sort. Returns the row's sorted ``MatchColumns`` and its
-    counters: matches and over-cap slots summed over the shards, k-mers
-    counted once (every shard saw the same reads)."""
+    process's shards' matches for its data row's reads, in the blocks the
+    single card takes (``pipeline.match_blocks``: K1 once a block, K2 and
+    the fetch per shard and block), the db axis's gather of the match
+    columns and the one merge sort. Returns the row's sorted
+    ``MatchColumns`` and its counters: matches and over-cap slots summed
+    over the shards, k-mers counted once (every shard saw the same
+    reads)."""
     mark = timer.mark if timer is not None else (lambda name: None)
-    parts, c = match_parts(shards, t2s, codes, lens, pos_offsets,
-                           qid_offsets, cap=cap, syncmer=syncmer,
-                           smer_len=smer_len, plain=plain, timer=timer)
+    parts, c = match_blocks(shards, t2s, blocks, cap=cap, syncmer=syncmer,
+                            smer_len=smer_len, plain=plain, timer=timer)
     got, heads = mesh.gather_db(stack_columns(cat_columns(parts)),
                                 [c["n_over_cap"], int(c["total_kmers"])])
     mark("gather")
@@ -265,7 +265,7 @@ def sharded_classify(mesh: Mesh, shards: Shards, t2s, codes, lens,
 
 
 def sharded_fused(mesh: Mesh, shards: Shards, t2s, dtx, read_lens,
-                  codes, lens, pos_offsets, qid_offsets, *, cap: int,
+                  blocks: list[Block], *, cap: int,
                   syncmer: bool = False, smer_len: int = 5,
                   route: str = "gather", a2a_budget: int = 0,
                   plain: bool = False, timer=None):
@@ -280,8 +280,8 @@ def sharded_fused(mesh: Mesh, shards: Shards, t2s, dtx, read_lens,
     (a one-process mesh, or one shard a row), the classifier's route.
 
     route="alltoall": the row's reads (local qids ``0..len(read_lens)``)
-    are cut into ``n_db`` ranges of ``stride`` reads; each shard's
-    qid-sorted rows are cut at ``stride * arange(n_db + 1)`` into blocks of
+    are cut into ``n_db`` ranges of ``stride`` reads; each shard's rows
+    (its blocks' parts, concatenated), sorted by qid, are cut at ``stride * arange(n_db + 1)`` into blocks of
     ``a2a_budget`` rows (0: the rule ``max(1024, 2 * row matches //
     n_db)``), one all_to_all hands each db rank every shard's block of its
     range, and each merges and tails only those: one output per local db
@@ -294,18 +294,19 @@ def sharded_fused(mesh: Mesh, shards: Shards, t2s, dtx, read_lens,
     tail = lambda m: dtx.tail(m, read_lens, plain=plain, timer=timer)
     if route == "gather":
         m, counts = sharded_classify(
-            mesh, shards, t2s, codes, lens, pos_offsets, qid_offsets,
-            cap=cap, syncmer=syncmer, smer_len=smer_len, plain=plain,
-            timer=timer)
+            mesh, shards, t2s, blocks, cap=cap, syncmer=syncmer,
+            smer_len=smer_len, plain=plain, timer=timer)
         return [(tail(m), counts)]
     if route != "alltoall":
         raise ValueError(f"unknown route {route!r}")
 
-    parts, c = match_parts(shards, t2s, codes, lens, pos_offsets,
-                           qid_offsets, cap=cap, syncmer=syncmer,
-                           smer_len=smer_len, plain=plain, timer=timer)
-    local = [stack_columns(p) for p in parts]
-    n_db, dev = mesh.n_db, codes.device
+    parts, c = match_blocks(shards, t2s, blocks, cap=cap, syncmer=syncmer,
+                            smer_len=smer_len, plain=plain, timer=timer)
+    # the parts are shard-major: each local shard's blocks in turn
+    nb = len(blocks)
+    local = [stack_columns(cat_columns(parts[i:i + nb]))
+             for i in range(0, len(parts), nb)]
+    n_db, dev = mesh.n_db, blocks[0].codes.device
     # the row's counters first: the budget rule needs its match count
     heads = mesh.gather_header([sum(r.shape[0] for r in local),
                                 c["n_over_cap"], int(c["total_kmers"])])

@@ -59,7 +59,7 @@ def save_batch(path: str, clf, reads) -> None:
     np.save(os.path.join(path, "values.npy"), clf.index.values[:-1])
     np.save(os.path.join(path, "taxids.npy"),
             clf.index.taxids[:-1].astype(np.int32))
-    dtx = clf.device_taxonomer
+    dtx = clf.taxonomer
     torch.save({
         "codes": torch.from_numpy(reads.codes),
         "lens": torch.from_numpy(reads.lens),

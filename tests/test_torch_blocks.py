@@ -95,19 +95,28 @@ def check_blocks(batches, lens):
 def test_blocks_equal_one_block_and_jax(world, mask):
     """Long reads, one of them 20 times the mean, in blocks: the same
     bytes as the batch as one matrix and as the JAX package, also under
-    --mask-mode 1 (the blocks are cut from the masked codes)."""
+    --mask-mode 1 (the blocks are cut from the masked codes), on the
+    single card and on a one-process mesh of two db shards
+    (``--db-shards 2``), which takes the same blocks."""
     root, db, q, lens = world
     flags = [*FLAGS, "--mask-mode", str(mask)]
     out = os.path.join(root, f"jax_m{mask}")
     assert jax_main(["classify", q, db, out, "bl", *flags]) == 0
     want = outputs(out)
-    batches = []
+    batches, sharded_batches = [], []
     blocked = run_port(os.path.join(root, f"blocked_m{mask}"), q, db, flags,
                        lambda ln: length_blocks(ln, LIMIT), batches)
+    sharded = run_port(os.path.join(root, f"sharded_m{mask}"), q, db,
+                       [*flags, "--db-shards", "2"],
+                       lambda ln: length_blocks(ln, LIMIT), sharded_batches)
     one = run_port(os.path.join(root, f"one_m{mask}"), q, db, flags,
                    lambda ln: None)
     check_blocks(batches, lens)
+    assert sharded_batches == batches
     assert_same(want, blocked)
+    # the mesh's run leaves its rank's part file beside the outputs
+    assert sharded.pop(".bl_part0.tsv")
+    assert_same(want, sharded)
     assert_same(want, one)
     rows = blocked["bl_classifications.tsv"].decode().splitlines()[1:]
     assert sum(r.startswith("1\t") for r in rows) >= 36

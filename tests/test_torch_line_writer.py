@@ -326,7 +326,7 @@ def test_drain_columns_objects_equal_the_drain_loop(golden, em):
     with clf._iter_batches(q, None) as reader:
         batch = next(reader)
     n = len(batch.names)
-    dtx = clf.device_taxonomer
+    dtx = clf.taxonomer
     job = clf._dispatch(batch)
     res = dtx.drain_columns(job.host, job.read_lens, n)
     assert isinstance(res.cls, np.ndarray) and len(res.cls) == n

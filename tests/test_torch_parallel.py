@@ -6,7 +6,9 @@ all_to_all routes on a one-process mesh and, through the CLI, spawned over
 gloo worlds of 2 and 4 processes (per read equal to the port's single
 fused path and to JAX's ``build_sharded_fused`` on the CPU mesh, the
 world of tests/test_sharded_fused.py), the all_to_all budget's overflow
-bit, and the plain route, reduced alphabet included."""
+bit, and the plain route, reduced alphabet included. The one-process
+steps also take a batch of mixed read lengths in several length blocks
+(``pipeline.length_blocks``), as the single card does."""
 
 import pathlib
 
@@ -29,8 +31,10 @@ from metabuli_tpu.ops.genetic_code import encode_seqs_padded
 from metabuli_tpu.parallel import dist_classify as jdist
 from metabuli_tpu.parallel import mesh as jmesh
 from metabuli_tpu_torch.classify.device_taxonomer import DeviceTaxonomer
-from metabuli_tpu_torch.classify.pipeline import (FIELDS, build_dev_index,
+from metabuli_tpu_torch.classify.pipeline import (FIELDS, Block,
+                                                  build_dev_index,
                                                   classify_core,
+                                                  length_blocks,
                                                   matches_to_host)
 from metabuli_tpu_torch.classify.taxonomer import TaxonomerParams
 from metabuli_tpu_torch.db.formats import DbParameters
@@ -42,6 +46,8 @@ from test_torch_distributed import free_port, spawn_ranks
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 CPU = torch.device("cpu")
+# padded bases a block for the mixed-length batches here (2^22 on the card)
+LIMIT = 600
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -85,6 +91,33 @@ def _world(kmer_format=2, reduced=False, seed=9):
         reads.append(r.tobytes())
     t2s = (np.arange(32, dtype=np.int32) % 7) + 1
     return values[o], taxids[o], t2s, reads
+
+
+def _mixed(reads, seed):
+    """``reads`` cut to 60-150 bases (the first kept whole) and their
+    read lengths (whole codons)."""
+    n = np.random.default_rng(seed).integers(60, 151, len(reads))
+    n[0] = 150
+    return ([r[:k] for r, k in zip(reads, n)],
+            (3 * ((n - 2) // 3)).astype(np.int32))
+
+
+def _blocks(codes, lens, pos, qid, limit=None):
+    """A batch's ``Block``s as the classifier uploads them: the whole
+    matrix as one block, or (``limit``) the length blocks of at most
+    ``limit`` padded bases, each cut to its longest row; at least 3."""
+    arrays = [np.asarray(a) for a in (codes, lens, pos, qid)]
+    if limit is None:
+        return [Block(*(torch.from_numpy(a) for a in arrays))]
+    cut = length_blocks(arrays[1], limit)
+    assert len(cut) >= 3
+    out = []
+    for rows in cut:
+        width = int(arrays[1][rows].max())
+        out.append(Block(*(torch.from_numpy(np.ascontiguousarray(a))
+                           for a in (arrays[0][rows, :width],
+                                     *(x[rows] for x in arrays[1:])))))
+    return out
 
 
 def _group_keys(prefix, grest, n_groups, key_bits):
@@ -203,21 +236,43 @@ def fused_world(tmp_path_factory):
                             len(aa) - 1]).max())
     tp = TaxonomerParams(seq_mode=1)
     dtx = DeviceTaxonomer(tp, tax, CPU)
+    t2s = torch.from_numpy(tax.species_of.astype(np.int32))
+    w = dict(dir=d, tax=tax, jtax=jtax, values=values, taxids=taxids,
+             names=names, cap=cap, dtx=dtx, t2s=t2s, reporter=Reporter(tax))
+    w.update(_single(w, reads, rl))
+    assert sum(ln.startswith("1\t") for ln in w["single"]) >= 24
+    return w
+
+
+def _single(w, reads, rl):
+    """``reads`` (read lengths ``rl``) as one batch through the port's
+    single fused path: the batch as one matrix (``batch``: codes,
+    lengths, offsets, qids), its match counters and every read's
+    classification line."""
+    n = len(reads)
     codes, lens = encode_seqs_padded(reads)
     batch = tuple(torch.from_numpy(a) for a in (
-        codes, lens, np.zeros(32, np.int32), np.arange(32, dtype=np.int32)))
-    t2s = torch.from_numpy(tax.species_of.astype(np.int32))
-    handle, counts = dtx.dispatch(build_dev_index(values, taxids), t2s,
-                                  *batch, rl, cap=cap, syncmer=False,
-                                  smer_len=5)
-    res = dtx.drain(dtx.start_drain(handle), rl, 32)
-    rep = Reporter(tax)
-    single = [rep.classification_row(n, rc, int(r))
-              for n, rc, r in zip(names, res, rl)]
-    assert sum(rc.is_classified for rc in res) >= 24
-    return dict(dir=d, tax=tax, jtax=jtax, values=values, taxids=taxids,
-                reads=reads, names=names, rl=rl, cap=cap, dtx=dtx, t2s=t2s,
-                batch=batch, single=single, counts=counts, reporter=rep)
+        codes, lens, np.zeros(n, np.int32), np.arange(n, dtype=np.int32)))
+    m, counts = classify_core(build_dev_index(w["values"], w["taxids"]),
+                              w["t2s"], *batch, cap=w["cap"])
+    dtx = w["dtx"]
+    res = dtx.drain(dtx.start_drain(dtx.tail(m, rl)), rl, n)
+    single = [w["reporter"].classification_row(nm, rc, int(r))
+              for nm, rc, r in zip(w["names"], res, rl)]
+    return dict(reads=reads, rl=rl, batch=batch, counts=counts,
+                single=single)
+
+
+@pytest.fixture(scope="module")
+def mixed_world(fused_world):
+    """fused_world's reads cut to 60-150 bases, through the single fused
+    path (``_single``) and JAX's sharded fused step (``jax``: each
+    route's lines)."""
+    w = dict(fused_world)
+    w.update(_single(w, *_mixed(w["reads"], 11)))
+    w["jax"] = _jax_fused(w)
+    assert sum(ln.startswith("1\t") for ln in w["single"]) >= 20
+    return w
 
 
 def _lines(w, m, outs, route):
@@ -236,24 +291,57 @@ def _lines(w, m, outs, route):
 
 
 @pytest.mark.parametrize("n_db", [2, 3])
-@pytest.mark.parametrize("route", ["gather", "alltoall"])
-def test_one_process_fused_equals_single(fused_world, route, n_db):
+@pytest.mark.parametrize("route,blocks", [
+    pytest.param("gather", False, id="gather"),
+    pytest.param("alltoall", False, id="alltoall"),
+    pytest.param("gather", True, id="gather-blocks"),
+    pytest.param("alltoall", True, id="alltoall-blocks")])
+def test_one_process_fused_equals_single(request, route, blocks, n_db):
     """A one-process mesh of ``n_db`` shards (gathered by concatenation,
     the all_to_all by regrouping): every read's line equals the single
-    fused path's; the gather route's counters equal its counters."""
-    w = fused_world
+    fused path's; the gather route's counters equal its counters. With
+    ``blocks``, reads of mixed length in several length blocks: the
+    lines equal the batch's as one matrix and JAX's."""
+    w = request.getfixturevalue("mixed_world" if blocks else "fused_world")
     m = mesh.Mesh(1, n_db, CPU)
     _, shards = mesh.shard_index_aa_aligned(w["values"], w["taxids"], n_db)
-    outs = mesh.sharded_fused(m, shards, w["t2s"], w["dtx"], w["rl"],
-                              *w["batch"], cap=w["cap"], route=route)
+    outs = mesh.sharded_fused(
+        m, shards, w["t2s"], w["dtx"], w["rl"],
+        _blocks(*w["batch"], LIMIT if blocks else None), cap=w["cap"],
+        route=route)
     assert len(outs) == (1 if route == "gather" else n_db)
     assert _lines(w, m, outs, route) == w["single"]
+    if blocks:
+        assert w["single"] == w["jax"][route]
     if route == "gather":
         assert outs[0][1] == w["counts"]
     else:
         assert sum(c["n_matches"] for _, c in outs) == w["counts"][
             "n_matches"]
         assert all(c["tax_overflow"] == 0 for _, c in outs)
+
+
+def test_grouped_alltoall_sends_each_shards_blocks_as_one(mixed_world):
+    """The all_to_all route in a process group (one gloo rank, one db
+    shard), on the mixed batch in length blocks: the exchange takes one
+    outbound a local shard, its blocks' parts as one set of rows, and
+    every read's line equals the batch's as one matrix."""
+    import torch.distributed as tdist
+
+    w = mixed_world
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                             f"{free_port()}", world_size=1, rank=0)
+    try:
+        m = mesh.Mesh(1, 1, CPU, backend="gloo",
+                      db_group=tdist.new_group([0]))
+        _, shards = mesh.shard_index_aa_aligned(w["values"], w["taxids"], 1)
+        outs = mesh.sharded_fused(
+            m, shards, w["t2s"], w["dtx"], w["rl"],
+            _blocks(*w["batch"], LIMIT), cap=w["cap"], route="alltoall")
+    finally:
+        tdist.destroy_process_group()
+    assert m.stats["gathers"] == 1
+    assert _lines(w, m, outs, "alltoall") == w["single"]
 
 
 def test_alltoall_budget_overflow_then_exact(fused_world):
@@ -264,8 +352,8 @@ def test_alltoall_budget_overflow_then_exact(fused_world):
     m = mesh.Mesh(1, 2, CPU)
     _, shards = mesh.shard_index_aa_aligned(w["values"], w["taxids"], 2)
     run = lambda budget: mesh.sharded_fused(
-        m, shards, w["t2s"], w["dtx"], w["rl"], *w["batch"], cap=w["cap"],
-        route="alltoall", a2a_budget=budget)
+        m, shards, w["t2s"], w["dtx"], w["rl"], _blocks(*w["batch"]),
+        cap=w["cap"], route="alltoall", a2a_budget=budget)
     outs = run(1)
     seg = outs[0][1]["a2a_segment"]
     assert seg > 1
@@ -278,10 +366,13 @@ def test_alltoall_budget_overflow_then_exact(fused_world):
 
 @pytest.fixture(scope="module")
 def jax_fused_lines(fused_world):
+    return _jax_fused(fused_world)
+
+
+def _jax_fused(w):
     """JAX's ``build_sharded_fused`` on the 8-device CPU mesh (4 data rows
     x 2 db shards, 8 reads a row, local qids), both routes: every read's
     classification line."""
-    w = fused_world
     jm = jmesh.make_mesh(jax.devices(), n_db=2)
     n_data, per_row = jm.shape["data"], 8
     codes, lens = (t.numpy() for t in w["batch"][:2])
@@ -295,7 +386,7 @@ def jax_fused_lines(fused_world):
                    max_matches=1 << 16)
     dtx.set_hints(jax_to_host(bm, t2s), tp.dna_shift)
     max_matches = 1 << 15
-    sizes = dtx.fused_sizes(per_row, max_matches, int(w["rl"][0]))
+    sizes = dtx.fused_sizes(per_row, max_matches, int(w["rl"].max()))
     db, n_pad, iters = jmesh.shard_index_aa_aligned(w["values"],
                                                     w["taxids"], 2)
     rep = JaxReporter(w["jtax"])
@@ -336,7 +427,8 @@ def test_one_process_fused_equals_jax(fused_world, jax_fused_lines, route):
     m = mesh.Mesh(1, 2, CPU)
     _, shards = mesh.shard_index_aa_aligned(w["values"], w["taxids"], 2)
     outs = mesh.sharded_fused(m, shards, w["t2s"], w["dtx"], w["rl"],
-                              *w["batch"], cap=w["cap"], route=route)
+                              _blocks(*w["batch"]), cap=w["cap"],
+                              route=route)
     assert _lines(w, m, outs, route) == jax_fused_lines[route]
 
 
@@ -379,14 +471,21 @@ def test_spawned_fused_equals_single_and_jax(fused_world, jax_fused_lines,
 
 
 # ----------------------------------------------------------- plain route
-@pytest.mark.parametrize("kind", ["format2", "reduced"])
-def test_plain_route_equals_single_and_jax(kind):
+@pytest.mark.parametrize("kind,blocks", [
+    pytest.param("format2", False, id="format2"),
+    pytest.param("reduced", False, id="reduced"),
+    pytest.param("format2", True, id="format2-blocks"),
+    pytest.param("reduced", True, id="reduced-blocks")])
+def test_plain_route_equals_single_and_jax(kind, blocks):
     """``sharded_classify`` (the plain route: gather, merge, then the host
     assign) on a one-process mesh of 2 and 3 shards: the host match dict
     equals the single index's and JAX's ``build_sharded_classify`` +
-    ``merge_shard_matches`` on the CPU mesh, every field."""
+    ``merge_shard_matches`` on the CPU mesh, every field. With
+    ``blocks``, reads of mixed length in several length blocks."""
     reduced = kind == "reduced"
     values, taxids, t2s, reads = _world(2, reduced)
+    if blocks:
+        reads, _ = _mixed(reads, 12)
     v, t = values[:-1], taxids[:-1]
     codes, lens = encode_seqs_padded(reads)
     n = len(reads)
@@ -397,7 +496,7 @@ def test_plain_route_equals_single_and_jax(kind):
     args = tuple(torch.from_numpy(a) for a in (t2s, codes, lens, offs, qids))
     m, c = classify_core(build_dev_index(v, t, reduced=reduced), *args,
                          cap=cap)
-    want = matches_to_host(m, c)
+    want = matches_to_host(m)
     jm = jmesh.make_mesh(jax.devices(), n_db=2)
     db, n_pad, iters = jmesh.shard_index_aa_aligned(v, t, 2, reduced=reduced)
     step = jmesh.build_sharded_classify(
@@ -408,9 +507,10 @@ def test_plain_route_equals_single_and_jax(kind):
     assert jw["n_matches"] == want["n_matches"] > 0
     for n_db in (2, 3):
         _, shards = mesh.shard_index_aa_aligned(v, t, n_db, reduced=reduced)
-        got, counts = mesh.sharded_classify(mesh.Mesh(1, n_db, CPU), shards,
-                                            *args, cap=cap)
-        got = matches_to_host(got, counts)
+        got, counts = mesh.sharded_classify(
+            mesh.Mesh(1, n_db, CPU), shards, args[0],
+            _blocks(*args[1:], LIMIT if blocks else None), cap=cap)
+        got = matches_to_host(got)
         assert counts == c
         for k in FIELDS:
             assert np.array_equal(got[k], want[k]), (n_db, k)

@@ -145,17 +145,14 @@ def test_probes_reject_partial_tiles_and_wrong_dtypes():
 
 
 def test_launch_helpers_refuse_cpu_tensors_and_runners_need_a_card():
-    """The shared launch path's check raises for CPU tensors; the launch
-    cost and probe runners exit 1 without a card (the tests run on the
-    CPU)."""
+    """The shared launch path's check raises for CPU tensors; the probe
+    runner exits 1 without a card (the tests run on the CPU)."""
     from metabuli_tpu_torch.csrc import build
-    from metabuli_tpu_torch.tools import launch_cost
 
     with pytest.raises(ValueError):
         build.require_cuda("x", torch.zeros(4, dtype=torch.int32),
                            dtype=torch.int32)
     if not torch.cuda.is_available():
-        assert launch_cost.main() == 1
         assert probes.main() == 1
 
 
